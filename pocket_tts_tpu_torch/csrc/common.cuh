@@ -1,0 +1,109 @@
+// Helpers shared by the port's CUDA kernels: dtype conversion, rounding to
+// the working dtype, warp and block reductions, 16-byte vector loads.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pt {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even
+}
+
+// The value an op's result takes once stored in the working dtype: the PyTorch
+// and XLA versions round every op's output to it.
+template <typename T> __device__ __forceinline__ float round_t(float v) {
+  return to_f<T>(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reductions over NT threads; `red` is NT / 32 floats of shared
+// memory. Every thread gets the result.
+template <int NT = kThreads>
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  float t = lane < NT / 32 ? red[lane] : 0.f;
+  t = warp_sum(t);
+  return t;
+}
+
+template <int NT = kThreads>
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  float t = lane < NT / 32 ? red[lane] : -INFINITY;
+  t = warp_max(t);
+  return t;
+}
+
+// 16 bytes of a row: raw load (read-only path), then widened to f32.
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int n = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
+    o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+    o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
+  }
+  __device__ __forceinline__ static void load(const float* p, float* o) { unpack(load16(p), o); }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int n = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* o) {
+    unpack(load16(p), o);
+  }
+};
+
+// Raise the dynamic shared-memory limit of a kernel when a launch needs more
+// than the default 48 KB.
+template <typename K>
+__host__ cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace pt

@@ -1,0 +1,113 @@
+"""Streaming multi-head attention over a static-capacity, append-ordered KV cache.
+
+Port of pocket_tts_tpu/nn/attention.py. The cache is a fixed-shape pair (k, v)
+of capacity C plus a per-slot position map `pos` [B, C] (absolute position in
+each slot, -1 = empty/padding), filled in append order at a write pointer
+shared by every batch row. A key is valid for a query iff pos_k >= 0 and
+0 <= pos_q - pos_k (< context for sliding windows).
+
+Attention is two-piece: logits over the (read-only) cache and over the current
+in-block keys are computed separately and softmaxed jointly, so the cache is
+never concatenated with the new block; the caller appends the new K/V once per
+stack (nn/transformer.transformer_apply).
+
+The windowed Mimi stack uses `attend_cached` for every block length. The JAX
+package splits blocks of T >= 128 into 64-query chunks
+(`attend_windowed_chunked`) to bound the [B, H, T, W+T] logits at large batch;
+at batch 1 those logits are a few MB (T = 512, W = 256: 3 MB in f32), so the
+port keeps the one masked product, whose numerics are the same.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pocket_tts_tpu_torch.nn.linear import matmul_t
+from pocket_tts_tpu_torch.nn.rope import rotate
+
+NEG = torch.finfo(torch.float32).min
+
+
+def qkv_project(x: torch.Tensor, in_proj, num_heads: int):
+    """x: [B, T, D], in_proj: [3D, D]. Returns q, k, v [B, T, H, Dh]."""
+    B, T, D = x.shape
+    packed = matmul_t(x, in_proj).reshape(B, T, 3, num_heads, D // num_heads)
+    return packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+
+
+def decode_masks(
+    pos_cache: torch.Tensor,
+    offset: torch.Tensor,
+    T: int,
+    context: int | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention masks for one step, shared by every layer in the stack.
+
+    Returns (mask_cache [B,1,T,Ca], mask_self [B,1,T,T]) for queries at
+    positions offset + 0..T-1 over cache slots (`pos_cache` [B, Ca]) and the
+    in-block keys (whose positions equal the query positions)."""
+    t = torch.arange(T, dtype=torch.int32, device=offset.device)
+    pos_q = offset[:, None] + t[None, :]
+    dc = pos_q[:, :, None] - pos_cache[:, None, :]
+    mc = (pos_cache[:, None, :] >= 0) & (dc >= 0)
+    ds = pos_q[:, :, None] - pos_q[:, None, :]
+    ms = ds >= 0
+    if context is not None:
+        mc &= dc < context
+        ms &= ds < context
+    return mc[:, None], ms[:, None]
+
+
+def attend_cached(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    mask_cache: torch.Tensor,
+    mask_self: torch.Tensor,
+) -> torch.Tensor:
+    """Joint SDPA over cache slots and the current block.
+
+    q/k_new/v_new: [B,T,H,Dh]; cache_k/v: [B,Ca,H,Dh]; masks from
+    `decode_masks`. Logits and softmax in f32; the softmax weights are cast
+    to the cache dtype before the value product, as in the JAX package.
+    Returns [B,T,H,Dh]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float()
+    lc = torch.einsum("bthd,bchd->bhtc", qf, cache_k.float()) * scale
+    ls = torch.einsum("bthd,bshd->bhts", qf, k_new.float()) * scale
+    lc = torch.where(mask_cache, lc, NEG)
+    ls = torch.where(mask_self, ls, NEG)
+    weights = torch.softmax(torch.cat([lc, ls], dim=-1), dim=-1)
+    Ca = cache_k.shape[1]
+    wc = weights[..., :Ca].to(cache_v.dtype)
+    ws = weights[..., Ca:].to(v_new.dtype)
+    out = torch.einsum("bhtc,bchd->bthd", wc.float(), cache_v.float())
+    out = out + torch.einsum("bhts,bshd->bthd", ws.float(), v_new.float())
+    return out.to(v_new.dtype)
+
+
+def mha_step(
+    in_proj,
+    out_proj,
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    rope_tabs: tuple[torch.Tensor, torch.Tensor],
+    masks: tuple[torch.Tensor, torch.Tensor],
+    *,
+    num_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One streaming attention call: project, rope, attend over cache + block.
+
+    Does not write the cache: returns (out [B,T,D], k_new, v_new [B,T,H,Dh])
+    for the caller to append once per stack."""
+    B, T, D = x.shape
+    q, k, v = qkv_project(x, in_proj, num_heads)
+    rotr, roti = rope_tabs
+    q, k = rotate(q, rotr, roti), rotate(k, rotr, roti)
+    out = attend_cached(q, cache_k, cache_v, k, v, masks[0], masks[1])
+    return matmul_t(out.reshape(B, T, D), out_proj), k, v

@@ -1,0 +1,157 @@
+"""Fused decode stack: every FlowLM layer of one T=1, B=1 step, with the KV
+append, in one call.
+
+Replaces the Pallas kernel pocket_tts_tpu/ops/decode_stack.py
+(`decode_stack_tpu` / `_kernel`). It computes exactly `transformer_apply`'s
+T=1 decode body over the append-ordered cache: per layer LN1 (f32 stats,
+eps 1e-5), the in_proj GEMV with interleaved RoPE on q and k at position
+`offset`, attention over the slots with `(pos >= 0) & (pos <= offset)` plus
+the step's own k/v (f32 softmax, weights cast to the cache dtype before the
+value sum), out_proj and the residual, LN2, w1, exact-erf GELU, w2 and the
+residual; the new k/v row is written in place at slot `write_pos`.
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+(csrc/decode_stack.cu); on a CPU tensor it runs `decode_stack_plain`, the same
+function in plain PyTorch (the tests' twin; it takes the same layer code as
+the prompt path). There is no fallback from one to the other.
+
+Bound on the H100: bytes, the weights read once per step (151 MB in bf16 for
+the 6-layer flagship) plus the valid cache slots, at 3.35 TB/s: ~45 us. The
+kernel design (csrc/decode_stack.cu) streams each weight row once with
+16-byte loads and fuses every small op into a GEMV prologue/epilogue or the
+attention kernel.
+
+Unlike the TPU kernel, the weights stay in the port's own per-layer
+row-major layout (no packing), bf16 and f32 weights and caches are both
+taken (so the small test model and an f32 model run on the kernel too), and
+any D % H == 0 with even Dh and F works. Two faults of the TPU kernel are
+repaired: mixed float dtypes across in_proj/out_proj/w1/w2 raise (the TPU
+pack checked only in_proj), and an append outside 0 <= write_pos < C raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pocket_tts_tpu_torch.nn.attention import decode_masks
+from pocket_tts_tpu_torch.nn.rope import rope_tables
+from pocket_tts_tpu_torch.nn.transformer import (
+    StackState,
+    TransformerConfig,
+    layer_params,
+    layer_step,
+)
+from pocket_tts_tpu_torch.ops.build import CudaKernel, check
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WEIGHTS = ("in_proj", "out_proj", "w1", "w2",
+            "norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    f = lib.decode_stack_run
+    f.restype = ctypes.c_int
+    f.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
+                  + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+
+
+KERNEL = CudaKernel("decode_stack", _bind)
+
+
+def _validate(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+              state: StackState) -> None:
+    B, T, D = x.shape
+    if B != 1 or T != 1:
+        raise NotImplementedError(f"decode_stack takes B=1, T=1 (got B={B}, T={T})")
+    if cfg.context is not None or cfg.layer_scale is not None:
+        raise NotImplementedError("decode_stack takes no attention context or layer scale")
+    if D % cfg.num_heads or (D // cfg.num_heads) % 2 or cfg.dim_feedforward % 2:
+        raise NotImplementedError("decode_stack needs D % H == 0 and even Dh and F")
+    quant = [k for k in ("in_proj", "out_proj", "w1", "w2") if isinstance(params[k], dict)]
+    if quant and x.device.type != "cpu":
+        raise NotImplementedError(
+            f"int8 weights ({', '.join(quant)}) on CUDA: the int8 kernel is not ported yet")
+    dtypes = {k: (params[k]["q"] if isinstance(params[k], dict) else params[k]).dtype
+              for k in _WEIGHTS if k not in quant}
+    dtypes.update(cache_k=state.k.dtype, cache_v=state.v.dtype, x=x.dtype)
+    if len(set(dtypes.values())) != 1:
+        raise NotImplementedError(f"decode_stack: mixed float dtypes {dtypes}")
+    C = state.k.shape[2]
+    if not 0 <= state.write_pos < C:
+        raise ValueError(f"decode_stack: write_pos {state.write_pos} outside capacity {C}")
+
+
+def decode_stack_plain(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
+                       offset: torch.Tensor, write_pos: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: x [1, 1, D] -> h [1, 1, D];
+    the step's k/v rows are written into cache_k/v [L, 1, C, H, Dh] at
+    `write_pos`."""
+    dh = cfg.d_model // cfg.num_heads
+    tabs = rope_tables(offset, 1, dh, cfg.max_period, batch=1)
+    masks = decode_masks(pos, offset, 1, None)
+    h = x
+    for layer in range(cfg.num_layers):
+        h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
+                                     cache_k[layer], cache_v[layer], tabs, masks)
+        cache_k[layer, :, write_pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[layer, :, write_pos] = v_new[:, 0].to(cache_v.dtype)
+    return h
+
+
+def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
+                       offset: torch.Tensor, write_pos: int) -> torch.Tensor:
+    lib = KERNEL.load()
+    tensors = {"x": x, "cache_k": cache_k, "cache_v": cache_v, "pos": pos,
+               "offset": offset, **{k: params[k] for k in _WEIGHTS}}
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"decode_stack: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"decode_stack: {name} is not contiguous")
+    if x.dtype not in _DTYPES:
+        raise NotImplementedError(f"decode_stack kernel: dtype {x.dtype}")
+    if pos.dtype != torch.int32 or offset.dtype != torch.int32:
+        raise ValueError("decode_stack: pos and offset must be int32")
+    L, _, C, H, _ = cache_k.shape
+    D, Ff = cfg.d_model, cfg.dim_feedforward
+    h = x.reshape(D).clone()  # the kernel's residual stream, updated in place
+    scratch = torch.empty(4 * D + Ff, dtype=x.dtype, device=x.device)
+    p = params
+    err = lib.decode_stack_run(
+        _DTYPES[x.dtype], L, D, H, Ff, C, h.data_ptr(),
+        p["in_proj"].data_ptr(), p["out_proj"].data_ptr(), p["w1"].data_ptr(),
+        p["w2"].data_ptr(), p["norm1_scale"].data_ptr(), p["norm1_bias"].data_ptr(),
+        p["norm2_scale"].data_ptr(), p["norm2_bias"].data_ptr(),
+        cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), offset.data_ptr(),
+        write_pos, float(cfg.max_period), scratch.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "decode_stack_run")
+    KERNEL.launches += 1
+    return h.reshape(1, 1, D)
+
+
+def decode_stack(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
+                 offset: torch.Tensor, write_pos: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    fn = decode_stack_plain if x.device.type == "cpu" else _decode_stack_cuda
+    return fn(cfg, params, x, cache_k, cache_v, pos, offset, write_pos)
+
+
+def decode_stack_apply(cfg: TransformerConfig, params: dict, x: torch.Tensor,
+                       state: StackState) -> tuple[torch.Tensor, StackState]:
+    """transformer_apply's T=1 decode body: x [1, 1, D] -> (h [1, 1, D], state).
+
+    The k/v row goes into the state's caches in place at write_pos; the pos
+    map is updated in place and offset/write_pos advance like append_kv for
+    one fully valid step."""
+    _validate(cfg, params, x, state)
+    wp = state.write_pos
+    h = decode_stack(cfg, params, x, state.k, state.v, state.pos, state.offset, wp)
+    state.pos[:, wp] = state.offset
+    return h, StackState(k=state.k, v=state.v, pos=state.pos,
+                         offset=state.offset + 1, write_pos=wp + 1)

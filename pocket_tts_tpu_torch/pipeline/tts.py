@@ -1,0 +1,502 @@
+"""TTS pipeline orchestrator: the public TTSModel, batch 1.
+Port of pocket_tts_tpu/pipeline/tts.py (`generate_audio`,
+`generate_audio_stream` and the pieces they run).
+
+Per sentence chunk: the text prompt fills the KV cache (a T>1 pass), then
+frames are decoded in blocks of K (the `_block_size` ramp: single frames
+first for first-chunk latency, then 8, then 32). Each frame runs the FlowLM
+decode step (the decode-stack kernel on the card) and the flow head; each
+block's latents then go through the Mimi decoder in one call (the codec
+kernel on the card), and the block's EOS flags and audio come to the host
+with one copy. Emission follows the JAX package exactly (`_ChunkEmit`): the
+frames after the first EOS, the frames-after-EOS allowance and the break
+step. The JAX package overlaps those copies with later dispatches on a
+background thread (`_FetchPipe`); here each block is copied when it is done.
+
+State: the KV append is in place (nn/transformer.py), so every chunk starts
+from a copy of the voice state, in the model's dtype: with copy_state=True
+(the default) the caller's state is left bit-unchanged; with
+copy_state=False it receives the post-chunk state, trimmed to the steps the
+reference loop would have run.
+
+Entry points run on CUDA unless the caller passes device="cpu"; there is no
+silent move to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import os
+import time
+from pathlib import Path
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from pocket_tts_tpu_torch.config import CONFIGS_DIR, Config, load_config
+from pocket_tts_tpu_torch.core.tree import tree_map
+from pocket_tts_tpu_torch.default_parameters import (
+    DEFAULT_EOS_THRESHOLD,
+    DEFAULT_LANGUAGE,
+    DEFAULT_LSD_DECODE_STEPS,
+    DEFAULT_NOISE_CLAMP,
+    DEFAULT_TEMPERATURE,
+    MAX_TOKEN_PER_CHUNK,
+)
+from pocket_tts_tpu_torch.models.flow_lm import (
+    FlowLMSpecs,
+    build_flow_lm_specs,
+    decode_step,
+    embed_text_tokens,
+    init_flow_lm_params,
+    init_flow_lm_state,
+    prompt_step,
+)
+from pocket_tts_tpu_torch.models.mimi import (
+    MimiSpecs,
+    build_mimi_specs,
+    decoder_step,
+    init_decoder_state,
+    init_mimi_decoder_params,
+    project_latent,
+)
+from pocket_tts_tpu_torch.nn.transformer import StackState
+from pocket_tts_tpu_torch.pipeline.states import (
+    expand_state,
+    export_model_state,
+    import_model_state,
+)
+from pocket_tts_tpu_torch.text.sentencepiece import SentencePieceTokenizer
+from pocket_tts_tpu_torch.text.splitter import prepare_text_prompt, split_into_best_sentences
+
+logger = logging.getLogger(__name__)
+
+# KV-capacity and prompt-length buckets, as in the JAX package
+CAPACITY_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
+PROMPT_BUCKETS = (8, 16, 32, 64, 128, 192, 256, 384, 512)
+FIRST_BLOCK_FRAMES = 2  # single-frame blocks up front (first-chunk latency)
+SCAN_BLOCK_FRAMES = 8  # frames per block while the stream ramps up
+MAX_BLOCK_FRAMES = 32  # steady-state frames per block (2.56 s of audio)
+RAMP_FRAMES = FIRST_BLOCK_FRAMES + 4 * SCAN_BLOCK_FRAMES
+
+
+def _block_size(frames_started: int, warm: bool = False) -> int:
+    """Block ramp: single frames for first-chunk latency, 8-frame blocks while
+    the stream builds its buffer, then 32-frame blocks. `warm`: the stream
+    already has buffered audio (chunks after the first), so start at 32."""
+    if warm:
+        return MAX_BLOCK_FRAMES
+    if frames_started < FIRST_BLOCK_FRAMES:
+        return 1
+    if frames_started < RAMP_FRAMES:
+        return SCAN_BLOCK_FRAMES
+    return MAX_BLOCK_FRAMES
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 255) // 256) * 256
+
+
+def _fresh_seed() -> int:
+    return int(np.random.SeedSequence().entropy % (2**31))
+
+
+@dataclasses.dataclass
+class GenerationParams:
+    temp: float = DEFAULT_TEMPERATURE
+    lsd_decode_steps: int = DEFAULT_LSD_DECODE_STEPS
+    noise_clamp: float | None = DEFAULT_NOISE_CLAMP
+    eos_threshold: float = DEFAULT_EOS_THRESHOLD
+
+
+class NoiseSource:
+    """Host flow-noise stream: N(0, temp) with optional truncation (the JAX
+    package's NoiseSource). Tests inject recorded streams in its place."""
+
+    def __init__(self, params: GenerationParams, seed: int | None):
+        self.params = params
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, shape) -> np.ndarray:
+        std = self.params.temp**0.5
+        if self.params.noise_clamp is None:
+            return (self.rng.standard_normal(shape) * std).astype(np.float32)
+        from scipy.stats import truncnorm
+
+        a = -self.params.noise_clamp / std
+        b = self.params.noise_clamp / std
+        return truncnorm.rvs(a, b, scale=std, size=shape,
+                             random_state=self.rng).astype(np.float32)
+
+
+class _ChunkEmit:
+    """Per-chunk emission accounting (the JAX package's rule): blocks resolve
+    through `emit` in order; `finish` applies the no-EOS contract."""
+
+    def __init__(self, max_gen_len: int, frames_after_eos: int):
+        self.max_gen_len = max_gen_len
+        self.frames_after_eos = frames_after_eos
+        self.eos_step: int | None = None
+        self.emitted = 0
+        self.stop = False
+        self.frames_started = 0
+
+    def emit(self, block_start: int, flags, audio, out: list) -> None:
+        if self.stop:
+            return
+        flags = np.asarray(flags)  # [K, B] or [B]
+        audio = np.asarray(audio)
+        K = flags.shape[0] if flags.ndim == 2 else 1
+        for i in range(K):
+            s = block_start + i
+            if s >= self.max_gen_len:
+                break
+            flag = bool(flags[i, 0] if flags.ndim == 2 else flags[0])
+            if flag and self.eos_step is None:
+                self.eos_step = s
+            if self.eos_step is not None and s >= self.eos_step + self.frames_after_eos:
+                self.stop = True  # the break step s is still executed
+                return
+            self.emitted += 1
+            out.append(audio[i, 0, 0] if audio.ndim == 4 else audio[0, 0])
+
+    def finish(self) -> None:
+        if self.eos_step is None and self.frames_started >= self.max_gen_len:
+            if os.environ.get("POCKET_TTS_ERROR_WITHOUT_EOS", "0") == "1":
+                raise RuntimeError("Generation reached maximum length without EOS!")
+            logger.warning("Maximum generation length reached without EOS; "
+                           "this very often indicates an error.")
+
+
+def _default_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("No CUDA device found; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+class TTSModel:
+    """End-to-end streaming TTS: text -> 24 kHz waveform chunks."""
+
+    _TOKENS_PER_SECOND_ESTIMATE = 3.0
+    _GEN_SECONDS_PADDING = 2.0
+
+    def __init__(
+        self,
+        specs: FlowLMSpecs,
+        mimi_specs: MimiSpecs,
+        params: dict,
+        mimi_params: dict,
+        tokenizer,
+        config: Config,
+        gen_params: GenerationParams,
+        device: torch.device,
+    ):
+        self.specs = specs
+        self.mimi_specs = mimi_specs
+        self.params = params
+        self.mimi_params = mimi_params
+        self.tokenizer = tokenizer
+        self.config = config
+        self.gen = gen_params
+        self.device = torch.device(device)
+        self.pad_with_spaces_for_short_inputs = config.pad_with_spaces_for_short_inputs
+        self.remove_semicolons = config.remove_semicolons
+        self.model_recommended_frames_after_eos = config.model_recommended_frames_after_eos
+        self.decode_steps = 0  # FlowLM decode steps run by this model (all requests)
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return self.params["input_linear"].dtype
+
+    @property
+    def sample_rate(self) -> int:
+        return self.config.mimi.sample_rate
+
+    @property
+    def frame_rate(self) -> float:
+        return self.config.mimi.frame_rate
+
+    @property
+    def samples_per_frame(self) -> int:
+        return self.mimi_specs.frame_size
+
+    # ------------------------------------------------------------------ load
+
+    @classmethod
+    def load_model(
+        cls,
+        language: str | None = None,
+        config: str | Path | None = None,
+        temp: float = DEFAULT_TEMPERATURE,
+        lsd_decode_steps: int = DEFAULT_LSD_DECODE_STEPS,
+        noise_clamp: float | None = DEFAULT_NOISE_CLAMP,
+        eos_threshold: float = DEFAULT_EOS_THRESHOLD,
+        allow_random_init: bool = False,
+        param_dtype: str = "float32",
+        device: str | torch.device | None = None,
+    ) -> "TTSModel":
+        """Build a model from a language or a YAML config.
+
+        Loading checkpoints is not ported yet: `allow_random_init=True` builds
+        the model with random weights from a torch generator seeded with 0,
+        as the JAX package seeds its init with 0 (its shapes and
+        distributions, not its bits).
+        The tokenizer loads when the config names a local file.
+        `param_dtype`: "float32" or "bfloat16" (serving); the flow head and
+        all norm/softmax math stay f32 either way. `device`: CUDA unless
+        "cpu" is asked for."""
+        if config is not None and language is not None:
+            raise ValueError("Cannot specify both config and language.")
+        if config is None:
+            language = language or DEFAULT_LANGUAGE
+            if language == "french":
+                raise ValueError("Only a larger 24-layer model is available for French; "
+                                 "use the 'french_24l' language instead.")
+            config = CONFIGS_DIR / f"{language}.yaml"
+        config_path = Path(config)
+        if config_path.suffix not in (".yaml", ".yml"):
+            raise ValueError("Config should be a path to a YAML file ending with .yaml")
+        cfg = load_config(config_path)
+        dev = _default_device() if device is None else torch.device(device)
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[param_dtype]
+
+        specs = build_flow_lm_specs(cfg)
+        mimi_specs = build_mimi_specs(cfg.mimi)
+        gen = GenerationParams(temp, lsd_decode_steps, noise_clamp, eos_threshold)
+
+        tokenizer = None
+        tok_path = Path(cfg.flow_lm.lookup_table.tokenizer_path)
+        if tok_path.exists():
+            tokenizer = SentencePieceTokenizer(cfg.flow_lm.lookup_table.n_bins, tok_path)
+        else:
+            logger.warning("Tokenizer %s is not a local file; text APIs need token ids.",
+                           tok_path)
+
+        if not allow_random_init:
+            raise NotImplementedError(
+                "checkpoint loading is not ported yet; pass allow_random_init=True")
+        logger.warning("Checkpoint loading is not ported yet; using random init.")
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = init_flow_lm_params(specs, g, torch.float32, dev)
+        mimi_params = init_mimi_decoder_params(mimi_specs, g, torch.float32, dev)
+        if dtype != torch.float32:  # every f32 leaf, as the JAX package casts
+
+            def cast(t):
+                return t.to(dtype) if t.dtype == torch.float32 else t
+
+            params, mimi_params = tree_map(cast, params), tree_map(cast, mimi_params)
+        return cls(specs, mimi_specs, params, mimi_params, tokenizer, cfg, gen, dev)
+
+    # ------------------------------------------------------------- voice state
+
+    def state_for_conditioning(self, cond: torch.Tensor) -> StackState:
+        """Voice state from conditioning already in backbone space [1, T, D]
+        (the speaker projection of an encoded voice): one prompt pass into a
+        fresh cache. Encoding audio comes with voice cloning. As in the JAX
+        package the conditioning stays f32 through the prompt pass (the
+        cache takes the model dtype)."""
+        cond = cond.to(self.device, torch.float32)
+        B, prompt_len, D = cond.shape
+        if self.specs.insert_bos_before_voice:
+            bos = self.params["bos_before_voice"].expand(B, 1, D)
+            cond = torch.cat([bos.to(cond.dtype), cond], dim=1)
+            prompt_len += 1
+        pad_to = _bucket(prompt_len, PROMPT_BUCKETS)
+        padded = torch.zeros((B, pad_to, D), dtype=cond.dtype, device=self.device)
+        padded[:, :prompt_len] = cond
+        state = init_flow_lm_state(self.specs, B, _bucket(pad_to, CAPACITY_BUCKETS),
+                                   self._dtype, self.device)
+        return prompt_step(self.specs, self.params, state, padded, true_len=prompt_len)
+
+    def import_state(self, source: str | Path) -> StackState:
+        return import_model_state(source, dtype=self._dtype, device=self.device)
+
+    def export_model_state(self, state: StackState, dest: str | Path) -> None:
+        export_model_state(state, dest)
+
+    # -------------------------------------------------------------- generation
+
+    def _estimate_max_gen_len(self, token_count: int) -> int:
+        gen_len_sec = token_count / self._TOKENS_PER_SECOND_ESTIMATE + self._GEN_SECONDS_PADDING
+        return math.ceil(gen_len_sec * self.frame_rate)
+
+    def _encode_text(self, text: str) -> list[int]:
+        if self.tokenizer is None:
+            raise RuntimeError("No tokenizer available: the config's tokenizer_path "
+                               "must be a local file.")
+        return self.tokenizer.encode(text)
+
+    def _ensure_capacity(self, lm_state: StackState, slots_needed: int) -> StackState:
+        """Progressive capacity growth: pad the cache up to the smallest bucket
+        covering `slots_needed`; never shrinks."""
+        cap = _bucket(slots_needed, CAPACITY_BUCKETS)
+        return expand_state(lm_state, cap) if cap > lm_state.k.shape[2] else lm_state
+
+    def _noise(self, gen: torch.Generator, shape) -> torch.Tensor:
+        """Flow noise on the device: N(0, temp), truncated to ±noise_clamp by
+        resampling (the JAX package's device noise has the same law)."""
+        std = self.gen.temp ** 0.5
+        z = torch.randn(shape, generator=gen, device=self.device)
+        if self.gen.noise_clamp is not None:
+            c = self.gen.noise_clamp / std
+            bad = z.abs() > c
+            while bool(bad.any()):
+                z = torch.where(bad, torch.randn(shape, generator=gen, device=self.device), z)
+                bad = z.abs() > c
+        return z * std
+
+    def generate_audio_stream(
+        self,
+        model_state: StackState,
+        text_to_generate: str,
+        max_tokens: int = MAX_TOKEN_PER_CHUNK,
+        frames_after_eos: int | None = None,
+        copy_state: bool = True,
+        seed: int | None = None,
+        noise_source: Callable | None = None,
+    ) -> Iterator[np.ndarray]:
+        """Yield [samples] float32 chunks (80 ms each) as they are decoded.
+
+        Long text is split into sentence chunks. `noise_source=None` draws the
+        flow noise on the device from a generator seeded per chunk from
+        SeedSequence([seed, i]); a callable (tests, recorded streams) is
+        asked for (B, ldim) when K=1 and (K, B, ldim) otherwise."""
+        if frames_after_eos is None:
+            frames_after_eos = self.model_recommended_frames_after_eos
+        chunks = split_into_best_sentences(
+            self.tokenizer, text_to_generate, max_tokens,
+            self.pad_with_spaces_for_short_inputs, self.remove_semicolons,
+        )
+        for i, chunk in enumerate(chunks):
+            _, guess = prepare_text_prompt(chunk, self.pad_with_spaces_for_short_inputs,
+                                           self.remove_semicolons)
+            spec = dict(
+                tokens=self._encode_text(chunk),
+                frames_after_eos=frames_after_eos if frames_after_eos is not None else guess + 2,
+                warm_start=i > 0,
+                seed=None if seed is None else
+                int(np.random.SeedSequence([seed, i]).generate_state(1)[0]),
+            )
+            yield from self._generate_chunk(model_state, spec, noise_source,
+                                            write_back=not copy_state)
+
+    def _generate_chunk(self, model_state: StackState, spec: dict,
+                        noise_source: Callable | None, write_back: bool) -> Iterator[np.ndarray]:
+        t_start = time.monotonic()
+        tokens = spec["tokens"]
+        token_count = len(tokens)
+        max_gen_len = spec.get("max_gen_len") or self._estimate_max_gen_len(token_count)
+        slots_used = model_state.write_pos
+        pad_to = _bucket(token_count, PROMPT_BUCKETS)
+
+        # the in-place KV append must not reach the caller's voice state: work
+        # on a copy, in the model's dtype
+        lm_state = expand_state(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
+        if lm_state is model_state or lm_state.k.dtype != self._dtype:
+            lm_state = StackState(lm_state.k.to(self._dtype, copy=True),
+                                  lm_state.v.to(self._dtype, copy=True),
+                                  lm_state.pos.clone(), lm_state.offset.clone(),
+                                  lm_state.write_pos)
+        mimi_state = init_decoder_state(self.mimi_specs, 1, self._dtype, self.device)
+        lm_state = self._prompt_text_tokens(lm_state, tokens)
+
+        ldim = self.specs.ldim
+        prev_latent = torch.zeros((1, ldim), dtype=torch.float32, device=self.device)
+        is_bos = torch.ones((1,), dtype=torch.bool, device=self.device)
+        gen = None
+        if noise_source is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(spec.get("seed") if spec.get("seed") is not None else _fresh_seed())
+
+        run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
+        out: list[np.ndarray] = []
+        start_slots = slots_used + pad_to
+        frames_started = 0
+        while frames_started < max_gen_len and not run.stop:
+            K = _block_size(frames_started, warm=spec.get("warm_start", False))
+            lm_state = self._ensure_capacity(lm_state, start_slots + frames_started + K)
+            if noise_source is None:
+                noise = self._noise(gen, (K, 1, ldim))
+            else:
+                noise = torch.as_tensor(noise_source((1, ldim) if K == 1 else (K, 1, ldim)),
+                                        dtype=torch.float32).reshape(K, 1, ldim).to(self.device)
+            latents, flags = [], []
+            for i in range(K):
+                latent, eos, lm_state = decode_step(
+                    self.specs, self.params, lm_state, prev_latent, is_bos, noise[i],
+                    lsd_steps=self.gen.lsd_decode_steps, eos_threshold=self.gen.eos_threshold)
+                latents.append(latent)
+                flags.append(eos)
+                prev_latent = latent
+                is_bos = torch.zeros_like(is_bos)
+            self.decode_steps += K
+            latents = torch.stack(latents)  # [K, 1, ldim]
+            denorm = latents * self.params["emb_std"] + self.params["emb_mean"]
+            quantized = project_latent(self.mimi_specs, self.mimi_params,
+                                       denorm.permute(1, 2, 0))  # [1, 512, K]
+            audio, mimi_state = decoder_step(self.mimi_specs, self.mimi_params, quantized,
+                                             mimi_state)  # [1, 1, K*1920]
+            audio = audio.reshape(1, 1, K, -1).permute(2, 0, 1, 3)  # [K, 1, 1, 1920]
+            host_flags = torch.stack(flags).cpu().numpy()
+            host_audio = audio.float().cpu().numpy()
+            run.emit(frames_started, host_flags, host_audio, out)
+            frames_started += K
+            while out:
+                yield out.pop(0)
+        run.frames_started = frames_started
+        run.finish()
+        if write_back:
+            self._write_back(model_state, lm_state, run, token_count)
+        dur_ms = run.emitted * self.samples_per_frame * 1000 / self.sample_rate
+        wall_ms = (time.monotonic() - t_start) * 1000
+        logger.info("Generated %d ms of audio in %d ms (%.2fx real-time)",
+                    int(dur_ms), int(wall_ms), dur_ms / max(wall_ms, 1e-6))
+
+    def _write_back(self, model_state: StackState, lm_state: StackState, run: _ChunkEmit,
+                    token_count: int) -> None:
+        """copy_state=False: hand the caller the post-chunk state, offset
+        advanced by the prompt and every step the reference loop ran (the
+        first EOS + frames_after_eos + the break step, capped at
+        max_gen_len); later speculative slots are masked out."""
+        if run.eos_step is not None:
+            stop = min(run.eos_step + run.frames_after_eos + 1, run.max_gen_len)
+        else:
+            stop = run.max_gen_len
+        final_offset = (model_state.offset + token_count + stop).to(torch.int32)
+        model_state.k, model_state.v = lm_state.k, lm_state.v
+        model_state.pos = torch.where(lm_state.pos < final_offset[:, None], lm_state.pos, -1)
+        model_state.offset = final_offset
+        model_state.write_pos = lm_state.write_pos
+
+    def _prompt_text_tokens(self, lm_state: StackState, tokens: list[int]) -> StackState:
+        pad_to = _bucket(len(tokens), PROMPT_BUCKETS)
+        tok = torch.zeros((1, pad_to), dtype=torch.long)
+        tok[0, : len(tokens)] = torch.as_tensor(tokens, dtype=torch.long)
+        emb = embed_text_tokens(self.params, tok.to(self.device))
+        return prompt_step(self.specs, self.params, lm_state, emb, true_len=len(tokens))
+
+    def generate_audio(
+        self,
+        model_state: StackState,
+        text_to_generate: str,
+        max_tokens: int = MAX_TOKEN_PER_CHUNK,
+        frames_after_eos: int | None = None,
+        copy_state: bool = True,
+        seed: int | None = None,
+        noise_source: Callable | None = None,
+    ) -> np.ndarray:
+        """Generate the full waveform [samples] for a text prompt."""
+        chunks = list(self.generate_audio_stream(
+            model_state, text_to_generate, max_tokens=max_tokens,
+            frames_after_eos=frames_after_eos, copy_state=copy_state, seed=seed,
+            noise_source=noise_source,
+        ))
+        return np.concatenate(chunks, axis=0) if chunks else np.zeros((0,), np.float32)
+

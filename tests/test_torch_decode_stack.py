@@ -1,0 +1,142 @@
+"""The port's decode stack (pocket_tts_tpu_torch/ops/decode_stack.py) against
+the JAX package: its plain version on the CPU against `transformer_apply`'s
+XLA scan and against the Pallas kernel in interpret mode. The CUDA kernel is
+held against the plain version on the card in tests/test_torch_kernels_cuda.py.
+
+Caches are mid-generation, as in tests/test_decode_stack.py: valid slots in
+write order, a dead slot (pos = -1) inside the prefix, and speculative slots
+past the offset that must not be attended."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pocket_tts_tpu.nn.transformer import StackState as JaxState
+from pocket_tts_tpu.nn.transformer import TransformerConfig as JaxCfg
+from pocket_tts_tpu.nn.transformer import init_layer_params, transformer_apply
+from pocket_tts_tpu.ops.decode_stack import decode_stack_apply as jax_decode_stack_apply
+from pocket_tts_tpu.ops.decode_stack import pack_decode_stack
+from pocket_tts_tpu_torch.nn.transformer import TransformerConfig
+from pocket_tts_tpu_torch.nn.transformer import transformer_apply as port_transformer_apply
+from pocket_tts_tpu_torch.ops import decode_stack as ds
+from torch_port import host, port
+
+SMALL = dict(d_model=64, num_heads=4, num_layers=2, dim_feedforward=128)
+FLAGSHIP = dict(d_model=1024, num_heads=16, num_layers=2, dim_feedforward=4096)
+
+
+def make_case(geom, C, offset, dtype, seed=0):
+    """(jax cfg, port cfg, jax params, jax state, jax x)."""
+    rng = np.random.default_rng(seed)
+    jcfg, pcfg = JaxCfg(**geom), TransformerConfig(**geom)
+    L, H, Dh = jcfg.num_layers, jcfg.num_heads, jcfg.d_model // jcfg.num_heads
+    params = jax.tree.map(lambda a: a.astype(dtype),
+                          init_layer_params(jcfg, jax.random.PRNGKey(seed + 1)))
+    k = rng.standard_normal((L, 1, C, H, Dh)).astype(np.float32) * 0.5
+    v = rng.standard_normal((L, 1, C, H, Dh)).astype(np.float32) * 0.5
+    n_filled = offset + 7  # 7 speculative slots past the offset
+    pos = np.full((1, C), -1, np.int32)
+    pos[0, :n_filled] = np.arange(n_filled)
+    pos[0, 5] = -1  # a dead slot mid-prefix
+    state = JaxState(k=jnp.asarray(k, dtype), v=jnp.asarray(v, dtype), pos=jnp.asarray(pos),
+                     offset=jnp.asarray([offset], jnp.int32),
+                     write_pos=jnp.asarray(n_filled, jnp.int32))
+    x = jnp.asarray(rng.standard_normal((1, 1, jcfg.d_model)) * 0.3, dtype)
+    return jcfg, pcfg, params, state, x
+
+
+def run_port(pcfg, params, state, x, dtype):
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    st = port(state, tdt)
+    before = st.clone()
+    h, new = ds.decode_stack_apply(pcfg, port(params, tdt), port(x, tdt), st)
+    return h, new, before
+
+
+def assert_state(new, ref, before, slot, tol):
+    """The step's row matches the reference append; every other slot is
+    bit-unchanged; pos/offset/write_pos advance like append_kv."""
+    np.testing.assert_allclose(host(new.k[:, :, slot]), host(ref.k[:, :, slot]),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(host(new.v[:, :, slot]), host(ref.v[:, :, slot]),
+                               rtol=tol, atol=tol)
+    others = np.arange(new.k.shape[2]) != slot
+    assert torch.equal(new.k[:, :, others], before.k[:, :, others])
+    assert torch.equal(new.v[:, :, others], before.v[:, :, others])
+    np.testing.assert_array_equal(host(new.pos), np.asarray(ref.pos))
+    np.testing.assert_array_equal(host(new.offset), np.asarray(ref.offset))
+    assert new.write_pos == int(ref.write_pos)
+
+
+@pytest.mark.parametrize("C,offset", [(32, 10), (48, 30)])
+def test_plain_matches_xla_scan_f32(C, offset):
+    """f32 at 1e-4: the same arithmetic in another summation order."""
+    jcfg, pcfg, params, state, x = make_case(SMALL, C, offset, jnp.float32)
+    h_ref, st_ref = transformer_apply(jcfg, params, x, state, unroll=True)
+    h, new, before = run_port(pcfg, params, state, x, jnp.float32)
+    np.testing.assert_allclose(host(h), host(h_ref), rtol=1e-4, atol=1e-4)
+    assert_state(new, st_ref, before, int(state.write_pos), 1e-4)
+
+
+def test_plain_matches_xla_scan_flagship_bf16():
+    """Flagship width (D=1024, H=16, F=4096), 2 layers, bf16: bf16-grade 5e-2,
+    as tests/test_decode_stack.py holds the TPU kernel (XLA and PyTorch round
+    bf16 at different points)."""
+    jcfg, pcfg, params, state, x = make_case(FLAGSHIP, 256, 100, jnp.bfloat16, seed=3)
+    h_ref, st_ref = transformer_apply(jcfg, params, x, state, unroll=True)
+    h, new, before = run_port(pcfg, params, state, x, jnp.bfloat16)
+    np.testing.assert_allclose(host(h), host(h_ref), rtol=5e-2, atol=5e-2)
+    assert_state(new, st_ref, before, int(state.write_pos), 5e-2)
+
+
+def test_plain_matches_pallas_kernel_interpret():
+    """Against the TPU kernel itself (Pallas interpret mode on the CPU),
+    flagship width, bf16: bf16-grade 5e-2 (the TPU kernel keeps its residual
+    in f32 and uses an erf approximation)."""
+    jcfg, pcfg, params, state, x = make_case(FLAGSHIP, 256, 120, jnp.bfloat16, seed=5)
+    slot = int(state.write_pos)
+    h, new, before = run_port(pcfg, params, state, x, jnp.bfloat16)  # first: JAX donates the caches
+    h_ref, st_ref = jax_decode_stack_apply(jcfg, pack_decode_stack(jcfg, params), x, state,
+                                           interpret=True)
+    np.testing.assert_allclose(host(h), host(h_ref), rtol=5e-2, atol=5e-2)
+    assert_state(new, st_ref, before, slot, 5e-2)
+
+
+def test_transformer_apply_routes_b1_decode_to_decode_stack(monkeypatch):
+    """T=1, B=1 over the linear cache goes through the op; T>1 does not."""
+    calls = []
+    orig = ds.decode_stack_plain
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(ds, "decode_stack_plain", spy)
+    jcfg, pcfg, params, state, x = make_case(SMALL, 32, 10, jnp.float32)
+    st = port(state)
+    p = port(params)
+    port_transformer_apply(pcfg, p, port(x), st)
+    assert calls == [1]
+    port_transformer_apply(pcfg, p, torch.zeros((1, 3, 64)), st)
+    assert calls == [1]
+
+
+def test_mixed_float_dtypes_raise():
+    """The TPU pack checked only in_proj's dtype; the port checks them all."""
+    _, pcfg, params, state, x = make_case(SMALL, 32, 10, jnp.float32)
+    p = port(params)
+    p["w2"] = p["w2"].to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="mixed float dtypes"):
+        ds.decode_stack_apply(pcfg, p, port(x), port(state))
+
+
+@pytest.mark.parametrize("write_pos", [32, 40, -1])
+def test_write_pos_outside_capacity_raises(write_pos):
+    _, pcfg, params, state, x = make_case(SMALL, 32, 10, jnp.float32)
+    st = port(state)
+    st.write_pos = write_pos
+    with pytest.raises(ValueError, match="write_pos"):
+        ds.decode_stack_apply(pcfg, port(params), port(x), st)
+
