@@ -5,21 +5,36 @@
 
 Phases, each of which makes the script exit non-zero when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every CUDA kernel of the main path from pocket_tts_tpu_torch/csrc,
-     one nvcc per source, in parallel;
+  2. build: every CUDA kernel of the port from pocket_tts_tpu_torch/csrc (decode
+     stack, codec decoder, flash decode, skinny GEMV), one nvcc per source, in
+     parallel;
   3. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16 and f32, at the main path's shapes (decode_stack at the flagship
-     FlowLM width, 6 layers, C in {256, 512}, on a mid-generation cache with
+     bf16 and f32, at the main paths' shapes, with kernel, plain and library
+     times and the bound: decode_stack at the flagship FlowLM width, 6 layers,
+     C in {256, 512}, plain and int8 weights, on a mid-generation cache with
      dead and speculative slots; codec_decode on the english.yaml decoder at
-     T = 16 and 16*8 with its states), with times;
-  4. reference: a small f32 model's generate_audio on the card (kernels)
-     against the same model and noise on the CPU (plain versions), over a
-     whole request (EOS off: every frame up to the length limit, through
-     the 1,1,8,...,32 block ramp; frames emitted and decoded are printed);
-  5. main path: load_model(english.yaml, random init, bf16), a voice state by
-     a prompt pass over seeded conditioning, round-tripped through
-     export_model_state / import; 3 generate_audio requests and one streamed
-     request, with every launch counter set to 0 before and read after.
+     B=1 (T = 16 and 16*8) and B=32 (T=16) with its states; flash_decode at
+     B in {8, 32}, H=16, Dh=64, C in {256, 1024}, att_len < C, with dead slots,
+     slots past the offset and one all-dead row; gemv at 1, 8 and 32 rows for
+     every product the paths send it (GEMV_GROUPS): the FlowLM's four, plain
+     and int8, the flow head's as f32 activations over bf16 weights, and the
+     Mimi decoder transformer's four;
+  4. reference: a small f32 model's generate_audio (B=1) and
+     generate_audio_batch (B=4, ragged voices and prompts) on the card
+     (kernels, gemv included: the small FlowLM is 128 wide) against the same
+     model and noise on the CPU (plain versions), over whole requests (EOS
+     off: every frame up to the length limit, through the 1,1,8,...,32 block
+     ramp; frames emitted and decoded are printed);
+  5. main paths at english.yaml width with random weights, EOS off: bf16 b1
+     (load_model, a voice state by a prompt pass over seeded conditioning,
+     round-tripped through export_model_state / import; 3 generate_audio
+     requests and one streamed request), then generate_audio_batch_from_texts
+     at B=32 in bf16 and in int8 (quantize_config="attention_ffn"), at B=128
+     in bf16, and b1 generate_audio on the int8 model. Every launch counter is
+     set to 0 just before each path and read just after; each path checks
+     the counters its route predicts and that the callers' voice states are
+     bit-unchanged, and prints audio-s/s beside the card's name and power
+     limit.
 The line before the last is one JSON object with the kernels' numbers; the
 last is {"ok": true, "device": {...}}. Matmuls and convolutions run in full
 f32 (TF32 off) wherever f32 is compared.
@@ -146,9 +161,11 @@ def write_config(tmp: Path, small: bool = False) -> Path:
         write_tokenizer(tok, n_bins)
     cfg["flow_lm"]["lookup_table"]["tokenizer_path"] = str(tok)
     if small:
-        cfg["flow_lm"]["transformer"].update(d_model=64, num_heads=4, num_layers=2,
+        # FlowLM and flow-head widths of 128, so that their products of at
+        # most 32 rows take the gemv kernel as at full width
+        cfg["flow_lm"]["transformer"].update(d_model=128, num_heads=4, num_layers=2,
                                              hidden_scale=2)
-        cfg["flow_lm"]["flow"].update(dim=48, depth=2)
+        cfg["flow_lm"]["flow"].update(dim=128, depth=2)
         cfg["mimi"]["seanet"].update(dimension=64, n_filters=8)
         cfg["mimi"]["transformer"].update(d_model=64, num_heads=4, dim_feedforward=128,
                                           input_dimension=64, output_dimensions=[64],
@@ -170,16 +187,24 @@ def check_decode_stack(report: dict) -> None:
     from pocket_tts_tpu_torch.nn.transformer import StackState, TransformerConfig
     from pocket_tts_tpu_torch.nn.transformer import init_layer_params
     from pocket_tts_tpu_torch.ops import decode_stack as ds
+    from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8
 
     cfg = TransformerConfig(d_model=1024, num_heads=16, num_layers=6, dim_feedforward=4096)
     L, D, H, F = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.dim_feedforward
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
-    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+    cases = [("bfloat16", torch.bfloat16, False, ((256, 100), (512, 300))),
+             ("float32", torch.float32, False, ((256, 100), (512, 300))),
+             ("bfloat16", torch.bfloat16, True, ((256, 100),)),
+             ("float32", torch.float32, True, ((256, 100),))]
+    for dtype_name, dtype, quant, caches in cases:
         tol = REL_TOL[dtype_name]
+        label = ("int8-" if quant else "") + dtype_name
         g.manual_seed(1)
         params = init_layer_params(cfg, g, dtype, dev)
-        for C, offset in ((256, 100), (512, 300)):
+        if quant:  # attention_ffn: all four products int8, f32 row scales
+            params = quantize_flow_lm_int8({"transformer": params})["transformer"]
+        for C, offset in caches:
             # mid-generation cache: positions 0..offset+6 in write order (the
             # last 7 speculative, past the offset), slot 5 dead (pos = -1)
             k = (torch.randn((L, 1, C, H, D // H), generator=g, device=dev) * 0.5).to(dtype)
@@ -208,9 +233,9 @@ def check_decode_stack(report: dict) -> None:
             untouched = (torch.equal(sk.k[:, :, others], k[:, :, others])
                          and torch.equal(sk.v[:, :, others], v[:, :, others]))
             if not torch.isfinite(h_k.float()).all():
-                raise AssertionError(f"decode_stack {dtype_name} C={C}: non-finite output")
+                raise AssertionError(f"decode_stack {label} C={C}: non-finite output")
             if not untouched:
-                raise AssertionError(f"decode_stack {dtype_name} C={C}: slots other than "
+                raise AssertionError(f"decode_stack {label} C={C}: slots other than "
                                      "write_pos changed")
             ms = cuda_ms(lambda: ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos,
                                                        sk.offset, n_filled))
@@ -218,22 +243,25 @@ def check_decode_stack(report: dict) -> None:
                                                              sp.offset, n_filled), iters=5)
             es = torch.finfo(dtype).bits // 8
             valid = int(((pos >= 0) & (pos <= offset)).sum().item())
-            weights = L * (3 * D * D + D * D + 2 * F * D + 4 * D) * es
+            rows_out = 3 * D + D + F + D  # output rows of the four products
+            w_bytes = ((1 if quant else es) * (4 * D * D + 2 * F * D)
+                       + (4 * rows_out if quant else 0))
+            weights = L * (w_bytes + 4 * D * es)
             nbytes = weights + L * valid * 2 * D * es + L * 2 * D * es + 2 * D * es + C * 4
             flops = L * (2 * (4 * D * D + 2 * F * D) + 4 * (valid + 1) * D)
             b_ms, b_by = bound(nbytes, flops, dtype_name)
-            if dtype_name == "bfloat16" and C == 256:
+            if dtype_name == "bfloat16" and C == 256 and not quant:
                 profile("decode_stack bf16 C=256 x20", lambda: [
                     ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset,
                                           n_filled) for _ in range(20)], top=6)
-            print(f"decode_stack {dtype_name} C={C}: max_abs_err={err:.3g} rel={rel:.3g} "
+            print(f"decode_stack {label} C={C}: max_abs_err={err:.3g} rel={rel:.3g} "
                   f"row_err={row_err:.3g} row_rel={row_rel:.3g} rel_tol={tol} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
             if rel > tol or row_rel > tol:
-                raise AssertionError(f"decode_stack {dtype_name} C={C}: max |kernel - plain| "
+                raise AssertionError(f"decode_stack {label} C={C}: max |kernel - plain| "
                                      f"/ max |plain| {rel:.3g} (row {row_rel:.3g}) > {tol}")
-            report[("decode_stack", dtype_name, C)] = dict(
+            report[("decode_stack", label, C)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -285,21 +313,22 @@ def check_codec(report: dict) -> None:
         tol = REL_TOL[dtype_name]
         g.manual_seed(2)
         params = init_seanet_params(spec, g, dtype, "cuda")
-        for T in (16, 16 * 8):
-            x = torch.randn((1, specs.arch.dimension, T), generator=g, device="cuda").to(dtype)
-            state = _rand_seanet_state(spec, 1, dtype, g)
+        for B, T in ((1, 16), (1, 16 * 8), (32, 16)):
+            x = torch.randn((B, specs.arch.dimension, T), generator=g, device="cuda").to(dtype)
+            state = _rand_seanet_state(spec, B, dtype, g)
             y_k, s_k = cd._codec_decode_cuda(spec, params, x, state)
             y_p, s_p = seanet_apply(spec, params, x, state)
             torch.cuda.synchronize()
             if y_k.shape != y_p.shape or not torch.isfinite(y_k.float()).all():
-                raise AssertionError(f"codec {dtype_name} T={T}: bad output {tuple(y_k.shape)}")
+                raise AssertionError(f"codec {dtype_name} B={B} T={T}: bad output "
+                                     f"{tuple(y_k.shape)}")
             err, rel = rel_err(y_k, y_p)
             states = [rel_err(a, b) for a, b in zip(_leaves(s_k), _leaves(s_p))
                       if a.is_floating_point() and a.numel()]
             st_err, st_rel = max(r[0] for r in states), max(r[1] for r in states)
             if not all(torch.equal(a, b) for a, b in zip(_leaves(s_k), _leaves(s_p))
                        if not a.is_floating_point()):
-                raise AssertionError(f"codec {dtype_name} T={T}: integer states differ")
+                raise AssertionError(f"codec {dtype_name} B={B} T={T}: integer states differ")
             ms = cuda_ms(lambda: cd._codec_decode_cuda(spec, params, x, state))
             plain_ms = cuda_ms(lambda: seanet_apply(spec, params, x, state), iters=10)
             es = torch.finfo(dtype).bits // 8
@@ -316,22 +345,190 @@ def check_codec(report: dict) -> None:
                 elif kind == "resblock":
                     flops += sum(2 * c.in_channels * c.out_channels * c.kernel_size * t
                                  for c in op.convs)
+            flops *= B
             b_ms, b_by = bound(nbytes, flops, dtype_name)
-            if dtype_name == "bfloat16" and T == 16:
+            if dtype_name == "bfloat16" and T == 16 and B == 1:
                 profile("codec_decode bf16 T=16 x20", lambda: [
                     cd._codec_decode_cuda(spec, params, x, state) for _ in range(20)], top=12)
-            print(f"codec_decode {dtype_name} T={T}: max_abs_err={err:.3g} rel={rel:.3g} "
+            print(f"codec_decode {dtype_name} B={B} T={T}: max_abs_err={err:.3g} rel={rel:.3g} "
                   f"state_err={st_err:.3g} state_rel={st_rel:.3g} rel_tol={tol} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.0f} MFLOP)")
             if rel > tol or st_rel > tol:
-                raise AssertionError(f"codec {dtype_name} T={T}: max |kernel - plain| "
+                raise AssertionError(f"codec {dtype_name} B={B} T={T}: max |kernel - plain| "
                                      f"/ max |plain| {rel:.3g} (states {st_rel:.3g}) > {tol}")
-            report[("codec_decode", dtype_name, T)] = dict(
+            report[("codec_decode", dtype_name, B, T)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def flash_inputs(g, B, C, H, Dh, dtype, att):
+    """q, caches, k_new / v_new, pos, offset for one flash-decode call: row 0
+    all dead; every other row fills a prefix of its own length (below att)
+    in write order, every 7th slot dead, its last 3 slots past the offset.
+    v_new and k_new are strided views of a packed qkv row, as the main path
+    gives them."""
+    import torch
+
+    q = torch.randn((B, H, Dh), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, C, H, Dh), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, C, H, Dh), generator=g, device="cuda").to(dtype)
+    packed = torch.randn((B, 3, H, Dh), generator=g, device="cuda").to(dtype)
+    pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
+    offset = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    for b in range(1, B):
+        fill = min(att, 8 + (att - 8) * b // (B - 1))
+        p = torch.arange(fill, dtype=torch.int32, device="cuda")
+        p[6::7] = -1
+        pos[b, :fill] = p
+        offset[b] = fill - 4
+    return q, k, v, packed[:, 1], packed[:, 2], pos, offset
+
+
+def check_flash_decode(report: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from pocket_tts_tpu_torch.ops import flash_decode as fd
+
+    H, Dh = 16, 64
+    g = torch.Generator(device="cuda")
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        tol = REL_TOL[dtype_name]
+        g.manual_seed(5)
+        for B, C, att in ((8, 256, 200), (32, 256, 200), (8, 1024, 900), (32, 1024, 900)):
+            args = flash_inputs(g, B, C, H, Dh, dtype, att)
+            q, k, v, kn, vn, pos, off = args
+            out_k = fd._flash_decode_cuda(*args, att_len=att)
+            out_p = fd.flash_decode_plain(*args, att_len=att)
+            torch.cuda.synchronize()
+            if out_k.shape != (B, H, Dh) or not torch.isfinite(out_k.float()).all():
+                raise AssertionError(f"flash_decode {dtype_name} B={B} C={C}: bad output")
+            err, rel = rel_err(out_k, out_p)
+            dead_err, dead_rel = rel_err(out_k[0], vn[0])  # all dead: the new value alone
+            ms = cuda_ms(lambda: fd._flash_decode_cuda(*args, att_len=att))
+            plain_ms = cuda_ms(lambda: fd.flash_decode_plain(*args, att_len=att), iters=10)
+            # library: SDPA of the same q over [cache || new] with the same
+            # boolean mask; the concatenated k/v and the mask are built here,
+            # outside the timed call
+            valid = (pos[:, :att] >= 0) & (pos[:, :att] <= off[:, None])
+            mask = torch.cat([valid, torch.ones((B, 1), dtype=torch.bool, device="cuda")],
+                             dim=1)[:, None, None, :]
+            kc = torch.cat([k[:, :att], kn[:, None]], dim=1).transpose(1, 2).contiguous()
+            vc = torch.cat([v[:, :att], vn[:, None]], dim=1).transpose(1, 2).contiguous()
+            qq = q[:, :, None, :].contiguous()
+            lib_out = F.scaled_dot_product_attention(qq, kc, vc, attn_mask=mask)[:, :, 0]
+            lib_err, _ = rel_err(lib_out, out_p)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qq, kc, vc, attn_mask=mask))
+            es = torch.finfo(dtype).bits // 8
+            n_valid = int(valid.sum().item())
+            nbytes = (2 * n_valid + 4 * B) * H * Dh * es + B * att * 4 + B * 4
+            flops = 4 * (n_valid + B) * H * Dh
+            b_ms, b_by = bound(nbytes, flops, dtype_name)
+            print(f"flash_decode {dtype_name} B={B} C={C} att_len={att}: max_abs_err={err:.3g} "
+                  f"rel={rel:.3g} all_dead_rel={dead_rel:.3g} rel_tol={tol} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"(library err {lib_err:.3g}) bound_ms={b_ms:.4f} "
+                  f"({b_by}, {nbytes / 1e6:.2f} MB, {n_valid} valid slots)")
+            if rel > tol or dead_rel > tol:
+                raise AssertionError(f"flash_decode {dtype_name} B={B} C={C}: max |kernel - "
+                                     f"plain| / max |plain| {rel:.3g} (all-dead row "
+                                     f"{dead_rel:.3g}) > {tol}")
+            report[("flash_decode", dtype_name, B, C)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+# Every product the smoke's paths send to the gemv kernel: [O, I] by name,
+# and the (x dtype, W dtype, int8) kinds it comes in. The FlowLM's four in
+# bf16 and int8 (the bf16 and attention_ffn models at B=32) and in f32; the
+# flow head's aligned linears as f32 activations over bf16 weights (every
+# bf16 path) and in f32; the Mimi decoder transformer's four (d=512, F=2048)
+# in bf16 and f32. Each at 1, 8 and 32 rows (b1, the block ramp, B=32).
+GEMV_GROUPS = [
+    ({"in_proj": (3072, 1024), "out_proj": (1024, 1024), "w1": (4096, 1024),
+      "w2": (1024, 4096)},
+     [("bfloat16", "bfloat16", False), ("float32", "float32", False),
+      ("bfloat16", "bfloat16", True), ("float32", "float32", True)]),
+    ({"flow_cond_embed": (512, 1024), "flow_time_l0": (512, 256), "flow_mlp": (512, 512),
+      "flow_ada": (1536, 512), "flow_final_ada": (1024, 512)},
+     [("float32", "bfloat16", False), ("float32", "float32", False)]),
+    ({"mimi_in_proj": (1536, 512), "mimi_out_proj": (512, 512), "mimi_w1": (2048, 512),
+      "mimi_w2": (512, 2048)},
+     [("bfloat16", "bfloat16", False), ("float32", "float32", False)]),
+]
+
+
+def gemv_label(x_name: str, w_name: str, quant: bool) -> str:
+    return ("int8-" if quant else "") + (x_name if x_name == w_name
+                                         else f"{x_name}-over-{w_name}")
+
+
+def check_gemv(report: dict) -> None:
+    import torch
+
+    from pocket_tts_tpu_torch.ops import gemv as gv
+    from pocket_tts_tpu_torch.quant import quantize_weight
+
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    for shapes, kinds in GEMV_GROUPS:
+        for x_name, w_name, quant in kinds:
+            xdt, wdt = dtypes[x_name], dtypes[w_name]
+            # the product computes in promote(x, W), here always x's dtype
+            tol = REL_TOL[x_name]
+            label = gemv_label(x_name, w_name, quant)
+            for name, (O, I) in shapes.items():
+                W = (torch.randn((O, I), generator=g, device="cuda") / I ** 0.5).to(wdt)
+                w = quantize_weight(W) if quant else W
+                for R in (1, 8, 32):
+                    x = torch.randn((R, I), generator=g, device="cuda").to(xdt)
+                    y_k = gv._gemv_cuda(x, w)
+                    y_p = gv.gemv_plain(x, w)
+                    torch.cuda.synchronize()
+                    if (y_k.shape != (R, O) or y_k.dtype != y_p.dtype
+                            or not torch.isfinite(y_k.float()).all()):
+                        raise AssertionError(f"gemv {label} {name} R={R}: bad output")
+                    err, rel = rel_err(y_k, y_p)
+                    ms = cuda_ms(lambda: gv._gemv_cuda(x, w))
+                    plain_ms = cuda_ms(lambda: gv.gemv_plain(x, w))
+                    # library: one torch.matmul for plain weights of x's
+                    # dtype; no single call fuses the int8 dequant or takes
+                    # f32 activations over bf16 weights
+                    lib_ms = (cuda_ms(lambda: torch.matmul(x, W.T))
+                              if not quant and xdt == wdt else None)
+                    xs, ws = torch.finfo(xdt).bits // 8, torch.finfo(wdt).bits // 8
+                    nbytes = (O * I * (1 if quant else ws) + (4 * O if quant else 0)
+                              + R * I * xs + R * O * xs)
+                    b_ms, b_by = bound(nbytes, 2 * R * O * I, x_name)
+                    lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+                    print(f"gemv {label} {name} {O}x{I} R={R}: max_abs_err={err:.3g} "
+                          f"rel={rel:.3g} rel_tol={tol} kernel_ms={ms:.4f} "
+                          f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} "
+                          f"({b_by}, {nbytes / 1e6:.2f} MB)")
+                    if rel > tol:
+                        raise AssertionError(f"gemv {label} {name} R={R}: max |kernel - plain| "
+                                             f"/ max |plain| {rel:.3g} > {tol}")
+                    report[("gemv", label, name, R)] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms)
+
+
 # ------------------------------------------------------------ pipeline phases
+
+
+def frame_source(noise):
+    """A pre-drawn [frames, B, ldim] noise stream served K frames at a time,
+    in whichever shape the pipeline asks for ((B, ldim) or (K, B, ldim))."""
+    served = 0
+
+    def source(shape):
+        nonlocal served
+        k = 1 if len(shape) == 2 else shape[0]
+        out = noise[served:served + k].reshape(shape)
+        served += k
+        return out
+    return source
 
 
 def check_reference(tmp: Path) -> None:
@@ -355,29 +552,24 @@ def check_reference(tmp: Path) -> None:
     cond = torch.randn((1, 12, card.specs.transformer.d_model),
                        generator=torch.Generator().manual_seed(3))
     noise = np.random.default_rng(4).standard_normal((400, 1, card.specs.ldim)).astype(np.float32)
-
-    def frames():
-        served = 0
-
-        def source(shape):
-            nonlocal served
-            k = 1 if len(shape) == 2 else shape[0]
-            out = noise[served:served + k].reshape(shape) * card.gen.temp ** 0.5
-            served += k
-            return out
-        return source
+    noise *= card.gen.temp ** 0.5
 
     text = "hello world this is a test of the tts."
+    reset_counts()
     card.decode_steps = 0
     a_card = card.generate_audio(card.state_for_conditioning(cond), text,
-                                 noise_source=frames())
-    a_cpu = cpu.generate_audio(cpu.state_for_conditioning(cond), text, noise_source=frames())
+                                 noise_source=frame_source(noise))
+    counts = read_counts()
+    a_cpu = cpu.generate_audio(cpu.state_for_conditioning(cond), text,
+                               noise_source=frame_source(noise))
     if a_card.shape != a_cpu.shape or a_card.size == 0:
         raise AssertionError(f"reference: lengths differ {a_card.shape} vs {a_cpu.shape}")
+    if counts["decode_stack"] != card.decode_steps or counts["gemv"] == 0:
+        raise AssertionError(f"reference: launches {counts} for {card.decode_steps} steps")
     err = float(np.abs(a_card - a_cpu).max())
     print(f"reference small f32 generate_audio card vs cpu: samples={a_card.size} "
           f"({a_card.size // card.samples_per_frame} frames emitted, {card.decode_steps} "
-          f"decoded) max_abs_err={err:.3g} tol=1e-3")
+          f"decoded), launches {counts}, max_abs_err={err:.3g} tol=1e-3")
     if not err <= 1e-3:
         raise AssertionError(f"reference: card vs cpu max error {err:.3g} > 1e-3")
 
@@ -409,23 +601,91 @@ def profile(label: str, fn, top: int = 8) -> None:
         print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
 
 
-def run_main_path(tmp: Path) -> dict:
+def kernel_modules() -> dict:
+    from pocket_tts_tpu_torch.ops import codec_decode, decode_stack, flash_decode, gemv
+
+    return {"decode_stack": decode_stack, "codec_decode": codec_decode,
+            "flash_decode": flash_decode, "gemv": gemv}
+
+
+def reset_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.KERNEL.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.KERNEL.launches for name, mod in kernel_modules().items()}
+
+
+def check_reference_batch(tmp: Path) -> None:
+    """The small model's generate_audio_batch at B=4 on the card (flash-decode
+    kernel) against the CPU: ragged voices and prompts, frame-indexed noise."""
     import numpy as np
     import torch
 
-    from pocket_tts_tpu_torch.ops import codec_decode, decode_stack
+    from pocket_tts_tpu_torch.core.tree import tree_map
     from pocket_tts_tpu_torch.pipeline.tts import TTSModel
 
-    cfg = write_config(tmp)
-    # Random weights put the EOS logit above the default threshold at the
-    # first step; with EOS off every request runs to its length limit.
-    model = TTSModel.load_model(config=cfg, allow_random_init=True, param_dtype="bfloat16",
-                                eos_threshold=1e9)
+    cfg = write_config(tmp, small=True)
+    card = TTSModel.load_model(config=cfg, allow_random_init=True, device="cuda",
+                               eos_threshold=1e9)
+
+    def to_cpu(t):
+        return t.cpu()
+
+    cpu = TTSModel(card.specs, card.mimi_specs, tree_map(to_cpu, card.params),
+                   tree_map(to_cpu, card.mimi_params), card.tokenizer, card.config, card.gen,
+                   torch.device("cpu"))
+    B, D, ldim = 4, card.specs.transformer.d_model, card.specs.ldim
+    g = torch.Generator().manual_seed(11)
+    conds = [torch.randn((1, n, D), generator=g) for n in (12, 5, 20, 9)]
+    texts = ["hello world.", "this is a test of the tts card.", "small speech.",
+             "the card runs fast and small speech on the world."]
+    tokens = [card.tokenizer.encode(t) for t in texts]
+    noise = np.random.default_rng(12).standard_normal((400, B, ldim)).astype(np.float32)
+    noise *= card.gen.temp ** 0.5
+
+    reset_counts()
+    card.decode_steps = 0
+    a_card = card.generate_audio_batch([card.state_for_conditioning(c) for c in conds], tokens,
+                                       noise_source=frame_source(noise))
+    counts, steps = read_counts(), card.decode_steps
+    a_cpu = cpu.generate_audio_batch([cpu.state_for_conditioning(c) for c in conds], tokens,
+                                     noise_source=frame_source(noise))
+    L = card.specs.transformer.num_layers
+    if counts["flash_decode"] != L * steps or steps == 0 or counts["gemv"] < 4 * L * steps:
+        raise AssertionError(f"reference batch: launches {counts} for {steps} steps of {L} "
+                             f"layers (want flash_decode {L * steps}, gemv at least "
+                             f"{4 * L * steps})")
+    if [a.shape for a in a_card] != [a.shape for a in a_cpu] or a_card[0].size == 0:
+        raise AssertionError(f"reference batch: lengths differ {[a.shape for a in a_card]} vs "
+                             f"{[a.shape for a in a_cpu]}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(a_card, a_cpu))
+    print(f"reference small f32 generate_audio_batch B={B} card vs cpu: prompts "
+          f"{[len(t) for t in tokens]} tokens, samples per row {a_card[0].size} "
+          f"({a_card[0].size // card.samples_per_frame} frames emitted, {steps} decoded), "
+          f"launches {counts}, max_abs_err={err:.3g} tol=1e-3")
+    if not err <= 1e-3:
+        raise AssertionError(f"reference batch: card vs cpu max error {err:.3g} > 1e-3")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                 capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def make_voice(model, tmp: Path, name: str):
+    """A voice state by a prompt pass over seeded conditioning, round-tripped
+    through export_model_state / import_state."""
+    import torch
+
     D = model.specs.transformer.d_model
     cond = torch.randn((1, 50, D), generator=torch.Generator(device="cuda").manual_seed(7),
                        device="cuda")
     made = model.state_for_conditioning(cond)
-    voice_file = tmp / "voice.safetensors"
+    voice_file = tmp / f"{name}.safetensors"
     model.export_model_state(made, voice_file)
     voice = model.import_state(voice_file)
     n = int(made.offset[0])
@@ -433,14 +693,55 @@ def run_main_path(tmp: Path) -> dict:
             and torch.equal(voice.k[:, :, :n], made.k[:, :, :n])
             and torch.equal(voice.v[:, :, :n], made.v[:, :, :n])):
         raise AssertionError("voice state changed in the export/import round trip")
+    print(f"voice state ({name}): {n} positions, capacity {voice.k.shape[2]}, "
+          f"dtype {voice.k.dtype}")
+    return voice
+
+
+def same_state(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a.k, b.k) and torch.equal(a.v, b.v) and torch.equal(a.pos, b.pos)
+            and torch.equal(a.offset, b.offset) and a.write_pos == b.write_pos)
+
+
+def check_route(label: str, counts: dict, steps: int, L: int, b1: bool, skinny: bool) -> None:
+    """The launch counters a path's route predicts: at B=1 the decode stack
+    once per step and no flash decode; at B>1 flash decode once per layer per
+    step and no decode stack; the codec kernel on every path; the gemv kernel
+    on every product of at most 32 rows (at least the four per layer per step
+    of the FlowLM at B<=32) and on none at B=128."""
+    want_ds, want_fd = (steps, 0) if b1 else (0, L * steps)
+    if steps == 0 or counts["decode_stack"] != want_ds or counts["flash_decode"] != want_fd:
+        raise AssertionError(f"{label}: launches {counts} for {steps} decode steps of {L} "
+                             f"layers (want decode_stack {want_ds}, flash_decode {want_fd})")
+    if counts["codec_decode"] == 0:
+        raise AssertionError(f"{label}: codec_decode never launched")
+    if skinny and counts["gemv"] < (0 if b1 else 4 * L * steps) + 1:
+        raise AssertionError(f"{label}: gemv launched {counts['gemv']} times for {steps} steps")
+    if not skinny and counts["gemv"] != 0:
+        raise AssertionError(f"{label}: gemv launched {counts['gemv']} times at more than "
+                             "32 rows")
+
+
+def run_main_path(tmp: Path):
+    """The b1 bf16 path: 3 requests and one streamed request."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    cfg = write_config(tmp)
+    # Random weights put the EOS logit above the default threshold at the
+    # first step; with EOS off every request runs to its length limit.
+    model = TTSModel.load_model(config=cfg, allow_random_init=True, param_dtype="bfloat16",
+                                eos_threshold=1e9)
+    voice = make_voice(model, tmp, "voice-bf16")
     before = voice.clone()
-    print(f"voice state: {n} positions, capacity {voice.k.shape[2]}, dtype {voice.k.dtype}")
 
     texts = ["hello world. this is a test of the tts.",
              "the card runs fast and small speech.",
              "this is a test. hello world, this is the speech of the card."]
-    decode_stack.KERNEL.launches = 0
-    codec_decode.KERNEL.launches = 0
+    reset_counts()
     model.decode_steps = 0
     total_audio, total_wall = 0.0, 0.0
     for i, text in enumerate(texts):
@@ -460,24 +761,113 @@ def run_main_path(tmp: Path) -> dict:
     rest = sum(c.size for c in stream) + first.size
     print(f"streamed request: first chunk {first.size} samples in {first_ms:.2f} ms, "
           f"{rest} samples in all")
-    launches = {"decode_stack": decode_stack.KERNEL.launches,
-                "codec_decode": codec_decode.KERNEL.launches}
-    steps = model.decode_steps
+    launches, steps = read_counts(), model.decode_steps
     print(f"launches: {launches}, decode steps: {steps}")
-    if launches["decode_stack"] != steps or steps == 0:
-        raise AssertionError(f"decode_stack launched {launches['decode_stack']} times "
-                             f"for {steps} decode steps")
-    if launches["codec_decode"] == 0:
-        raise AssertionError("codec_decode never launched on the main path")
-    if not (torch.equal(voice.k, before.k) and torch.equal(voice.pos, before.pos)
-            and torch.equal(voice.offset, before.offset)):
+    check_route("b1 bf16", launches, steps, model.specs.transformer.num_layers, b1=True,
+                skinny=True)
+    if not same_state(voice, before):
         raise AssertionError("a copy_state=True request changed the voice state")
-    print(f"main path: {total_audio:.2f} s of audio in {total_wall:.3f} s: "
-          f"{total_audio / total_wall:.2f} audio-s/s; first chunk {first_ms:.2f} ms")
+    print(f"main path b1 bf16: {total_audio:.2f} s of audio in {total_wall:.3f} s: "
+          f"{total_audio / total_wall:.2f} audio-s/s; first chunk {first_ms:.2f} ms "
+          f"[{card_line()}]")
     # enough rows for every decode-stack and codec kernel
     profile("one generate_audio request", lambda: model.generate_audio(voice, texts[1], seed=4),
             top=16)
-    return launches
+    return model, voice, launches
+
+
+BATCH_TEXTS = ["hello world. this is a test of the tts.",
+               "the card runs fast and small speech.",
+               "this is a test of the speech.",
+               "small and fast, the card runs the world.",
+               "hello card.",
+               "the tts runs on the card and the speech is small.",
+               "a test of the world.",
+               "fast speech is a small test."]
+
+
+def run_batch(model, voice, B: int, label: str, seed: int, profile_it: bool = False) -> dict:
+    """generate_audio_batch_from_texts over B rows (B copies of one B=1
+    voice state), twice (the first warms the shapes); counters reset before
+    and read after each run."""
+    import numpy as np
+
+    before = voice.clone()
+    texts = [BATCH_TEXTS[i % len(BATCH_TEXTS)] for i in range(B)]
+    L = model.specs.transformer.num_layers
+    total = {}
+    for run in range(2):
+        reset_counts()
+        model.decode_steps = 0
+        t0 = time.perf_counter()
+        outs = model.generate_audio_batch_from_texts([voice] * B, texts, seed=seed + run)
+        wall = time.perf_counter() - t0
+        counts, steps = read_counts(), model.decode_steps
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        if len(outs) != B or any(a.size == 0 or a.size % model.samples_per_frame
+                                 or not np.isfinite(a).all() for a in outs):
+            raise AssertionError(f"{label}: bad audio {[a.size for a in outs]}")
+        check_route(label, counts, steps, L, b1=False, skinny=B <= 32)
+        secs = sum(a.size for a in outs) / model.sample_rate
+        print(f"{label} run {run}: B={B}, {secs:.2f} s of audio in {wall:.3f} s: "
+              f"{secs / wall:.2f} audio-s/s ({steps} decode steps, {1e3 * wall / steps:.2f} ms "
+              f"per step, launches {counts}) [{card_line()}]")
+    if not same_state(voice, before):
+        raise AssertionError(f"{label}: the callers' voice state changed")
+    if profile_it:
+        profile(f"one {label} request", lambda: model.generate_audio_batch_from_texts(
+            [voice] * B, texts, seed=seed), top=16)
+    return total
+
+
+def run_batched_paths(tmp: Path, model, voice) -> dict:
+    """B=32 bf16, B=128 bf16, then the int8 model: B=32 and b1."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    paths = {"b32 bf16": run_batch(model, voice, 32, "b32 bf16", 100, profile_it=True),
+             "b128 bf16": run_batch(model, voice, 128, "b128 bf16", 200, profile_it=True)}
+    q_model = TTSModel.load_model(config=write_config(tmp), allow_random_init=True,
+                                  param_dtype="bfloat16", eos_threshold=1e9,
+                                  quantize_config="attention_ffn")
+    q_voice = make_voice(q_model, tmp, "voice-int8")
+    paths["b32 int8"] = run_batch(q_model, q_voice, 32, "b32 int8", 300, profile_it=True)
+    before = q_voice.clone()
+    reset_counts()
+    q_model.decode_steps = 0
+    t0 = time.perf_counter()
+    audio = [q_model.generate_audio(q_voice, t, seed=400 + i)
+             for i, t in enumerate(BATCH_TEXTS[:2])]
+    wall = time.perf_counter() - t0
+    counts, steps = read_counts(), q_model.decode_steps
+    if any(a.size == 0 or a.size % q_model.samples_per_frame or not np.isfinite(a).all()
+           for a in audio):
+        raise AssertionError(f"b1 int8: bad audio {[a.size for a in audio]}")
+    check_route("b1 int8", counts, steps, q_model.specs.transformer.num_layers, b1=True,
+                skinny=True)
+    if not same_state(q_voice, before):
+        raise AssertionError("b1 int8: a copy_state=True request changed the voice state")
+    secs = sum(a.size for a in audio) / q_model.sample_rate
+    print(f"b1 int8: 2 requests, {secs:.2f} s of audio in {wall:.3f} s: {secs / wall:.2f} "
+          f"audio-s/s ({steps} decode steps, launches {counts}) [{card_line()}]")
+    paths["b1 int8"] = counts
+    return paths
+
+
+KERNEL_ROWS = {  # name -> (source, TPU kernel replaced, report key of the line's numbers)
+    "decode_stack": ("pocket_tts_tpu_torch/csrc/decode_stack.cu",
+                     "pocket_tts_tpu/ops/decode_stack.py:453",
+                     ("decode_stack", "bfloat16", 256)),
+    "codec_decode": ("pocket_tts_tpu_torch/csrc/codec_decode.cu",
+                     "pocket_tts_tpu/ops/codec_decode.py:355",
+                     ("codec_decode", "bfloat16", 1, 16)),
+    "flash_decode": ("pocket_tts_tpu_torch/csrc/flash_decode.cu",
+                     "pocket_tts_tpu/ops/flash_decode.py:239",
+                     ("flash_decode", "bfloat16", 32, 256)),
+    "gemv": ("pocket_tts_tpu_torch/csrc/gemv.cu", "pocket_tts_tpu/ops/gemv.py:73",
+             ("gemv", "bfloat16", "w1", 32)),
+}
 
 
 def main() -> int:
@@ -489,19 +879,17 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from pocket_tts_tpu_torch.ops import build, codec_decode, decode_stack
+        from pocket_tts_tpu_torch.ops import build
     except ImportError as e:
         return fail(f"the port is not importable here: {e}")
 
     try:
-        secs, logs = build.build_all([decode_stack.KERNEL, codec_decode.KERNEL])
+        secs, logs = build.build_all([m.KERNEL for m in kernel_modules().values()])
         print(f"build: {secs:.1f} s")
         for name, log in logs.items():
             for line in log.splitlines():
@@ -510,27 +898,25 @@ def main() -> int:
         report: dict = {}
         check_decode_stack(report)
         check_codec(report)
+        check_flash_decode(report)
+        check_gemv(report)
         with tempfile.TemporaryDirectory() as d:
             check_reference(Path(d))
-            launches = run_main_path(Path(d))
+            check_reference_batch(Path(d))
+            model, voice, b1 = run_main_path(Path(d))
+            paths = {"b1 bf16": b1, **run_batched_paths(Path(d), model, voice)}
     except Exception as e:  # any failed phase fails the run
         import traceback
 
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
-    ds = report[("decode_stack", "bfloat16", 256)]
-    cd = report[("codec_decode", "bfloat16", 16)]
-    kernels = [
-        {"name": "decode_stack", "route": "cuda",
-         "source": "pocket_tts_tpu_torch/csrc/decode_stack.cu",
-         "replaces": "pocket_tts_tpu/ops/decode_stack.py:453",
-         "launches": launches["decode_stack"], **ds, "library_ms": None},
-        {"name": "codec_decode", "route": "cuda",
-         "source": "pocket_tts_tpu_torch/csrc/codec_decode.cu",
-         "replaces": "pocket_tts_tpu/ops/codec_decode.py:355",
-         "launches": launches["codec_decode"], **cd, "library_ms": None},
-    ]
+    kernels = []
+    for name, (source, replaces, key) in KERNEL_ROWS.items():
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": sum(by_path.values()), "library_ms": None, **report[key],
+                        "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

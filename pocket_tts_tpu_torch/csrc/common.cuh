@@ -1,5 +1,6 @@
 // Helpers shared by the port's CUDA kernels: dtype conversion, rounding to
-// the working dtype, warp and block reductions, 16-byte vector loads.
+// the working dtype, warp and block reductions, 16-byte vector loads (f32,
+// bf16 and int8 rows).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,6 +97,25 @@ template <> struct Vec16<__nv_bfloat16> {
     unpack(load16(p), o);
   }
 };
+
+// int8 weight rows (weight-only quantization): 16 values per 16 bytes.
+template <> struct Vec16<int8_t> {
+  static constexpr int n = 16;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        o[4 * i + b] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
+    }
+  }
+};
+
+template <typename T> __device__ __forceinline__ float to_f_any(T v) { return to_f<T>(v); }
+template <> __device__ __forceinline__ float to_f_any<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
 
 // Raise the dynamic shared-memory limit of a kernel when a launch needs more
 // than the default 48 KB.

@@ -18,6 +18,12 @@
 // intermediate makes an extra pass over device memory. One C call launches 5 kernels per layer on the caller's
 // stream; fusing the stack into one persistent launch is later work.
 //
+// int8 rows (weight-only quantization, all four GEMVs or none): the GEMVs
+// read 16 int8 values per 16-byte load, halving the weight stream (~75 MB a
+// step at the flagship, ~23 us at 3.35 TB/s), and apply each row's f32
+// scale in the epilogue at the port's matmul_t rounding points: the f32 sum
+// rounded to the working dtype, times the scale, rounded again.
+//
 // Numerics follow the PyTorch plain version (ops/decode_stack.py), which
 // follows the JAX package's XLA scan: f32 accumulation and statistics, every
 // op's result rounded to the working dtype, softmax in f32 with its weights
@@ -103,25 +109,25 @@ __device__ __forceinline__ void epilogue(T* __restrict__ out, int r, float a0, f
   }
 }
 
-// y = W @ in for a row-major W [rows, K]; the block computes rows
-// RPB * b .. RPB * b + RPB - 1.
-template <typename T, int PRO, int EPI, int RPB>
+// y = W @ in for a row-major W [rows, K] of type WT (T, or int8 with one f32
+// scale per row in `ws`); the block computes rows RPB * b .. RPB * b + RPB - 1.
+template <typename T, typename WT, int PRO, int EPI, int RPB>
 __global__ void __launch_bounds__(kGemvThreads)
 gemv_kernel(const T* __restrict__ in, int K, const T* __restrict__ ln_w,
-            const T* __restrict__ ln_b, const T* __restrict__ W, int vec_ok,
-            T* __restrict__ out, const int* __restrict__ offset, int D, int Dh,
+            const T* __restrict__ ln_b, const WT* __restrict__ W, const float* __restrict__ ws,
+            int vec_ok, T* __restrict__ out, const int* __restrict__ offset, int D, int Dh,
             float rope_c) {
   static_assert(kBatch % RPB == 0, "a batch covers whole chunks of every row");
   extern __shared__ __align__(16) float smem[];
   float* xin = smem;      // [K]
   float* red = smem + K;  // [kGemvWarps * RPB]
   const int r0 = RPB * blockIdx.x, tid = threadIdx.x;
-  const T* w = W + static_cast<size_t>(r0) * K;
+  const WT* w = W + static_cast<size_t>(r0) * K;
   float acc[RPB];
 #pragma unroll
   for (int r = 0; r < RPB; ++r) acc[r] = 0.f;
   if (vec_ok) {
-    constexpr int V = Vec16<T>::n;
+    constexpr int V = Vec16<WT>::n;
     constexpr int CPB = kBatch / RPB;  // chunks per row in one batch
     const int chunks = K / V;          // 16-byte chunks per row
     for (int base = 0; base < chunks; base += CPB * kGemvThreads) {
@@ -137,7 +143,7 @@ gemv_kernel(const T* __restrict__ in, int K, const T* __restrict__ ln_w,
         const int c = base + (b / RPB) * kGemvThreads + tid;
         if (c < chunks) {
           float f[V];
-          Vec16<T>::unpack(buf[b], f);
+          Vec16<WT>::unpack(buf[b], f);
           float a = acc[b % RPB];
 #pragma unroll
           for (int j = 0; j < V; j += 4) {
@@ -153,7 +159,7 @@ gemv_kernel(const T* __restrict__ in, int K, const T* __restrict__ ln_w,
     for (int i = tid; i < K; i += kGemvThreads) {
 #pragma unroll
       for (int r = 0; r < RPB; ++r)
-        acc[r] = fmaf(to_f<T>(w[static_cast<size_t>(r) * K + i]), xin[i], acc[r]);
+        acc[r] = fmaf(to_f_any<WT>(w[static_cast<size_t>(r) * K + i]), xin[i], acc[r]);
     }
   }
   const int warp = tid / 32, lane = tid % 32;
@@ -170,6 +176,10 @@ gemv_kernel(const T* __restrict__ in, int K, const T* __restrict__ ln_w,
     for (int wi = 0; wi < kGemvWarps; ++wi) {
       a0 += red[wi * RPB + 2 * tid];
       a1 += red[wi * RPB + 2 * tid + 1];
+    }
+    if (ws != nullptr) {  // int8 rows: the product in T, then the row's scale
+      a0 = round_t<T>(a0) * ws[r0 + 2 * tid];
+      a1 = round_t<T>(a1) * ws[r0 + 2 * tid + 1];
     }
     epilogue<T, EPI>(out, r0 + 2 * tid, a0, a1, offset, D, Dh, rope_c);
   }
@@ -287,39 +297,51 @@ attend_append_kernel(const T* __restrict__ qkv, T* __restrict__ cache_k,
   }
 }
 
-template <typename T>
+template <typename WT>
 int vec_ok(const void* p, int K) {
-  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (K % Vec16<T>::n == 0);
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (K % Vec16<WT>::n == 0);
 }
 
-template <typename T, int PRO, int EPI, int RPB>
-cudaError_t gemv_rpb(const T* in, int K, const T* ln_w, const T* ln_b, const T* W, int rows,
-                     int vec, T* out, const int* offset, int D, int Dh, float rope_c,
-                     cudaStream_t s) {
+template <typename T, typename WT, int PRO, int EPI, int RPB>
+cudaError_t gemv_rpb(const T* in, int K, const T* ln_w, const T* ln_b, const WT* W,
+                     const float* ws, int rows, int vec, T* out, const int* offset, int D, int Dh,
+                     float rope_c, cudaStream_t s) {
   const size_t bytes = (static_cast<size_t>(K) + kGemvWarps * RPB) * sizeof(float);
-  cudaError_t e = allow_smem(gemv_kernel<T, PRO, EPI, RPB>, bytes);
+  cudaError_t e = allow_smem(gemv_kernel<T, WT, PRO, EPI, RPB>, bytes);
   if (e != cudaSuccess) return e;
-  gemv_kernel<T, PRO, EPI, RPB><<<rows / RPB, kGemvThreads, bytes, s>>>(
-      in, K, ln_w, ln_b, W, vec, out, offset, D, Dh, rope_c);
+  gemv_kernel<T, WT, PRO, EPI, RPB><<<rows / RPB, kGemvThreads, bytes, s>>>(
+      in, K, ln_w, ln_b, W, ws, vec, out, offset, D, Dh, rope_c);
   return cudaGetLastError();
 }
 
-template <typename T, int PRO, int EPI>
-cudaError_t gemv(const T* in, int K, const T* ln_w, const T* ln_b, const T* W, int rows,
-                 T* out, const int* offset, int D, int Dh, float rope_c, cudaStream_t s) {
-  const int vec = vec_ok<T>(W, K);
-  if (vec && rows % 8 == 0 && K / Vec16<T>::n <= kGemvThreads)
-    return gemv_rpb<T, PRO, EPI, 8>(in, K, ln_w, ln_b, W, rows, vec, out, offset, D, Dh,
-                                    rope_c, s);
-  return gemv_rpb<T, PRO, EPI, 2>(in, K, ln_w, ln_b, W, rows, vec, out, offset, D, Dh, rope_c,
-                                  s);
+template <typename T, typename WT, int PRO, int EPI>
+cudaError_t gemv(const T* in, int K, const T* ln_w, const T* ln_b, const WT* W,
+                 const float* ws, int rows, T* out, const int* offset, int D, int Dh,
+                 float rope_c, cudaStream_t s) {
+  const int vec = vec_ok<WT>(W, K);
+  if (vec && rows % 8 == 0 && K / Vec16<WT>::n <= kGemvThreads)
+    return gemv_rpb<T, WT, PRO, EPI, 8>(in, K, ln_w, ln_b, W, ws, rows, vec, out, offset, D,
+                                        Dh, rope_c, s);
+  return gemv_rpb<T, WT, PRO, EPI, 2>(in, K, ln_w, ln_b, W, ws, rows, vec, out, offset, D, Dh,
+                                      rope_c, s);
 }
 
-template <typename T>
-cudaError_t run(int L, int D, int H, int F, int C, T* x, const T* in_proj,
-                const T* out_proj, const T* w1, const T* w2, const T* n1s, const T* n1b,
-                const T* n2s, const T* n2b, T* cache_k, T* cache_v, const int* pos,
-                const int* offset, int write_pos, float max_period, T* scratch,
+// Per-row scales of the four products, each [L, rows] f32; all null for
+// plain weights.
+struct Scales {
+  const float *in_proj, *out_proj, *w1, *w2;
+};
+
+// Layer l's slice of a [L, rows] scale array (null stays null).
+const float* layer_rows(const float* p, int l, int rows) {
+  return p ? p + static_cast<size_t>(l) * rows : p;
+}
+
+template <typename T, typename WT>
+cudaError_t run(int L, int D, int H, int F, int C, T* x, const WT* in_proj,
+                const WT* out_proj, const WT* w1, const WT* w2, Scales sc, const T* n1s,
+                const T* n1b, const T* n2s, const T* n2b, T* cache_k, T* cache_v,
+                const int* pos, const int* offset, int write_pos, float max_period, T* scratch,
                 cudaStream_t s) {
   const int Dh = D / H;
   const float rope_c = static_cast<float>(-log(static_cast<double>(max_period)) * 2.0 / Dh);
@@ -342,56 +364,75 @@ cudaError_t run(int L, int D, int H, int F, int C, T* x, const T* in_proj,
     const size_t DD = static_cast<size_t>(D) * D, DF = static_cast<size_t>(D) * F;
     T* ck = cache_k + static_cast<size_t>(l) * C * D;
     T* cv = cache_v + static_cast<size_t>(l) * C * D;
-    e = gemv<T, kLayerNorm, kQkvRope>(x, D, n1s + l * D, n1b + l * D, in_proj + l * 3 * DD,
-                                      3 * D, qkv, offset, D, Dh, rope_c, s);
+    e = gemv<T, WT, kLayerNorm, kQkvRope>(x, D, n1s + l * D, n1b + l * D, in_proj + l * 3 * DD,
+                                          layer_rows(sc.in_proj, l, 3 * D), 3 * D, qkv, offset,
+                                          D, Dh, rope_c, s);
     if (e != cudaSuccess) return e;
     attend_append_kernel<T><<<H, kThreads, att_bytes, s>>>(qkv, ck, cv, pos, offset, C, H, Dh,
                                                           write_pos, scale, att_vec, attn);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    e = gemv<T, kPlainIn, kResidual>(attn, D, nullptr, nullptr, out_proj + l * DD, D, x,
-                                     offset, D, Dh, rope_c, s);
+    e = gemv<T, WT, kPlainIn, kResidual>(attn, D, nullptr, nullptr, out_proj + l * DD,
+                                         layer_rows(sc.out_proj, l, D), D, x, offset, D, Dh,
+                                         rope_c, s);
     if (e != cudaSuccess) return e;
-    e = gemv<T, kLayerNorm, kGelu>(x, D, n2s + l * D, n2b + l * D, w1 + l * DF, F, g, offset,
-                                   D, Dh, rope_c, s);
+    e = gemv<T, WT, kLayerNorm, kGelu>(x, D, n2s + l * D, n2b + l * D, w1 + l * DF,
+                                       layer_rows(sc.w1, l, F), F, g, offset, D, Dh, rope_c, s);
     if (e != cudaSuccess) return e;
-    e = gemv<T, kPlainIn, kResidual>(g, F, nullptr, nullptr, w2 + l * DF, D, x, offset, D, Dh,
-                                     rope_c, s);
+    e = gemv<T, WT, kPlainIn, kResidual>(g, F, nullptr, nullptr, w2 + l * DF,
+                                         layer_rows(sc.w2, l, D), D, x, offset, D, Dh, rope_c, s);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
 }
 
+template <typename T>
+int run_any(int quant, int L, int D, int H, int F, int C, void* x, const void* in_proj,
+            const void* out_proj, const void* w1, const void* w2, Scales sc, const void* n1s,
+            const void* n1b, const void* n2s, const void* n2b, void* cache_k, void* cache_v,
+            const int* pos, const int* offset, int write_pos, float max_period, void* scratch,
+            cudaStream_t s) {
+  const T *a = static_cast<const T*>(n1s), *b = static_cast<const T*>(n1b);
+  const T *c = static_cast<const T*>(n2s), *d = static_cast<const T*>(n2b);
+  T *xx = static_cast<T*>(x), *ck = static_cast<T*>(cache_k), *cv = static_cast<T*>(cache_v);
+  T* scr = static_cast<T*>(scratch);
+  if (quant)
+    return run<T, int8_t>(L, D, H, F, C, xx, static_cast<const int8_t*>(in_proj),
+                          static_cast<const int8_t*>(out_proj), static_cast<const int8_t*>(w1),
+                          static_cast<const int8_t*>(w2), sc, a, b, c, d, ck, cv, pos, offset,
+                          write_pos, max_period, scr, s);
+  return run<T, T>(L, D, H, F, C, xx, static_cast<const T*>(in_proj),
+                   static_cast<const T*>(out_proj), static_cast<const T*>(w1),
+                   static_cast<const T*>(w2), Scales{nullptr, nullptr, nullptr, nullptr}, a, b, c,
+                   d, ck, cv, pos, offset, write_pos, max_period, scr, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (weights, norms, cache, x and scratch alike).
-// x [D] is the stack input on entry and its output on return. Weights are
-// row-major per layer: in_proj [L,3D,D], out_proj [L,D,D], w1 [L,F,D],
-// w2 [L,D,F]; norms [L,D]; caches [L,C,D]; pos [C] and offset [1] int32 on the
-// device; scratch holds 4D + F elements. Returns cudaGetLastError().
-extern "C" int decode_stack_run(int dtype, int L, int D, int H, int F, int C, void* x,
-                                const void* in_proj, const void* out_proj, const void* w1,
-                                const void* w2, const void* n1s, const void* n1b,
-                                const void* n2s, const void* n2b, void* cache_k,
-                                void* cache_v, const void* pos, const void* offset,
-                                int write_pos, float max_period, void* scratch,
-                                void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (norms, cache, x and scratch, and the
+// weights unless quant). quant: 1 = the four weights are int8 with f32
+// per-row scales in_s [L,3D], out_s [L,D], w1_s [L,F], w2_s [L,D]
+// (ignored otherwise). x [D] is the stack input on entry and its output on
+// return. Weights are row-major per layer: in_proj [L,3D,D], out_proj
+// [L,D,D], w1 [L,F,D], w2 [L,D,F]; norms [L,D]; caches [L,C,D]; pos [C] and
+// offset [1] int32 on the device; scratch holds 4D + F elements. Returns
+// cudaGetLastError().
+extern "C" int decode_stack_run(int dtype, int quant, int L, int D, int H, int F, int C,
+                                void* x, const void* in_proj, const void* out_proj,
+                                const void* w1, const void* w2, const void* in_s,
+                                const void* out_s, const void* w1_s, const void* w2_s,
+                                const void* n1s, const void* n1b, const void* n2s,
+                                const void* n2b, void* cache_k, void* cache_v, const void* pos,
+                                const void* offset, int write_pos, float max_period,
+                                void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* o = static_cast<const int*>(offset);
+  const Scales sc{static_cast<const float*>(in_s), static_cast<const float*>(out_s),
+                  static_cast<const float*>(w1_s), static_cast<const float*>(w2_s)};
   if (dtype == 0)
-    return run<float>(L, D, H, F, C, static_cast<float*>(x),
-                      static_cast<const float*>(in_proj), static_cast<const float*>(out_proj),
-                      static_cast<const float*>(w1), static_cast<const float*>(w2),
-                      static_cast<const float*>(n1s), static_cast<const float*>(n1b),
-                      static_cast<const float*>(n2s), static_cast<const float*>(n2b),
-                      static_cast<float*>(cache_k), static_cast<float*>(cache_v), p, o,
-                      write_pos, max_period, static_cast<float*>(scratch), s);
-  using bf = __nv_bfloat16;
-  return run<bf>(L, D, H, F, C, static_cast<bf*>(x), static_cast<const bf*>(in_proj),
-                 static_cast<const bf*>(out_proj), static_cast<const bf*>(w1),
-                 static_cast<const bf*>(w2), static_cast<const bf*>(n1s),
-                 static_cast<const bf*>(n1b), static_cast<const bf*>(n2s),
-                 static_cast<const bf*>(n2b), static_cast<bf*>(cache_k),
-                 static_cast<bf*>(cache_v), p, o, write_pos, max_period,
-                 static_cast<bf*>(scratch), s);
+    return run_any<float>(quant, L, D, H, F, C, x, in_proj, out_proj, w1, w2, sc, n1s, n1b, n2s,
+                          n2b, cache_k, cache_v, p, o, write_pos, max_period, scratch, s);
+  return run_any<__nv_bfloat16>(quant, L, D, H, F, C, x, in_proj, out_proj, w1, w2, sc, n1s,
+                                n1b, n2s, n2b, cache_k, cache_v, p, o, write_pos, max_period,
+                                scratch, s);
 }

@@ -11,6 +11,10 @@ in-block keys are computed separately and softmaxed jointly, so the cache is
 never concatenated with the new block; the caller appends the new K/V once per
 stack (nn/transformer.transformer_apply).
 
+A T=1 step of the FlowLM at B>1 (and at B=1 where the decode stack does not
+take the weights) attends through the flash-decode op instead
+(ops/flash_decode.py), which reads the position map itself.
+
 The windowed Mimi stack uses `attend_cached` for every block length. The JAX
 package splits blocks of T >= 128 into 64-query chunks
 (`attend_windowed_chunked`) to bound the [B, H, T, W+T] logits at large batch;
@@ -26,6 +30,7 @@ import torch
 
 from pocket_tts_tpu_torch.nn.linear import matmul_t
 from pocket_tts_tpu_torch.nn.rope import rotate
+from pocket_tts_tpu_torch.ops.flash_decode import flash_decode
 
 NEG = torch.finfo(torch.float32).min
 
@@ -97,17 +102,30 @@ def mha_step(
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
     rope_tabs: tuple[torch.Tensor, torch.Tensor],
-    masks: tuple[torch.Tensor, torch.Tensor],
+    masks: tuple[torch.Tensor, torch.Tensor] | None,
     *,
     num_heads: int,
+    att_len: int | None = None,
+    flash_ctx: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One streaming attention call: project, rope, attend over cache + block.
 
     Does not write the cache: returns (out [B,T,D], k_new, v_new [B,T,H,Dh])
-    for the caller to append once per stack."""
+    for the caller to append once per stack. `att_len`: attend only the
+    first att_len slots (every valid slot lies below it; `masks` were built
+    over those slots). `flash_ctx = (pos, offset)` routes the T=1 step to
+    the flash-decode op (ops/flash_decode.py), which masks by the position
+    map itself (no `masks`)."""
     B, T, D = x.shape
     q, k, v = qkv_project(x, in_proj, num_heads)
     rotr, roti = rope_tabs
     q, k = rotate(q, rotr, roti), rotate(k, rotr, roti)
-    out = attend_cached(q, cache_k, cache_v, k, v, masks[0], masks[1])
+    if flash_ctx is not None:
+        pos, offset = flash_ctx
+        out = flash_decode(q[:, 0], cache_k, cache_v, k[:, 0], v[:, 0], pos, offset,
+                           att_len=att_len)[:, None]
+    else:
+        if att_len is not None:
+            cache_k, cache_v = cache_k[:, :att_len], cache_v[:, :att_len]
+        out = attend_cached(q, cache_k, cache_v, k, v, masks[0], masks[1])
     return matmul_t(out.reshape(B, T, D), out_proj), k, v

@@ -1,9 +1,16 @@
 """Matmul helper shared by all dense layers (port of pocket_tts_tpu/nn/linear.py).
 
 Weights are a plain [O, I] tensor (torch Linear layout) or a weight-only int8
-dict {"q": int8 [.., O, I], "s": f32 [.., O]}. The int8 path runs only on the
-CPU in this slice of the port: its CUDA kernel (the JAX package's
-ops/gemv.py) is still to be ported, so a CUDA int8 weight raises.
+dict {"q": int8 [.., O, I], "s": f32 [.., O]}.
+
+Routing, as the JAX package's predicate (there behind an environment
+variable; here always): a product of at most 32 rows (leading dims
+flattened) with a 2-D weight whose dims are multiples of 128 goes to the
+gemv op (ops/gemv.py: the CUDA kernel for a CUDA tensor, its plain twin for
+a CPU tensor), plain or int8. Every other int8 product computes as the JAX
+package's XLA path does: x @ q.T in x's dtype, then times the f32 scale,
+rounded to x's dtype. Other plain products are torch.matmul, as the JAX
+package leaves them to XLA.
 
 Dtypes follow JAX's promotion: an f32 activation times a bf16 weight computes
 in f32 (the flow head runs f32 activations through bf16 weights), so both
@@ -12,17 +19,32 @@ operands are cast to the promoted type before the product.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+from pocket_tts_tpu_torch.ops.gemv import gemv_plain, gemv_takes, matmul_t_decode
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def _plain_products():
+    """Inside the block every product is plain PyTorch, on any device. It
+    exists only for the kernel-against-twin check: ops/decode_stack.py's
+    `decode_stack_plain` takes it so that the twin the decode-stack kernel
+    is held against on the card runs no other kernel. Nothing else may."""
+    before = getattr(_local, "plain", False)
+    _local.plain = True
+    try:
+        yield
+    finally:
+        _local.plain = before
 
 
 def matmul_t(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w.T for plain or int8-quantized weights."""
-    if isinstance(w, dict) and "q" in w:
-        if w["q"].is_cuda:
-            raise NotImplementedError(
-                "int8 weights on CUDA: the int8 GEMV kernel is not ported yet")
-        y = x @ w["q"].T.to(x.dtype)
-        return (y * w["s"]).to(x.dtype)
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt).T
-
+    if gemv_takes(x, w) and not getattr(_local, "plain", False):
+        return matmul_t_decode(x, w)
+    return gemv_plain(x, w)

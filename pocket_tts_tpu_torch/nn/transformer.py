@@ -5,12 +5,17 @@ Block structure: LN -> MHA -> (+LayerScale) residual, then LN -> Linear ->
 GELU(exact) -> Linear -> (+LayerScale) residual. Linears are bias-free;
 LayerNorm uses eps=1e-5 with affine params and f32 statistics.
 
-Routing, as in the JAX package: a T=1, B=1 step over the linear cache goes to
-the fused decode-stack op (ops/decode_stack.py: the CUDA kernel for a CUDA
-tensor, its plain twin for a CPU tensor). On CUDA every other T=1 step over
-the linear cache raises: batched decode waits for the flash-decode kernel.
-Prompt passes (T>1) and the windowed Mimi stack stay plain PyTorch, as they
-are plain XLA in the JAX package.
+Routing of a T=1 step over the linear cache (the FlowLM decode step):
+1. B=1, no context, no layer scale, and weights the decode stack takes (all
+   plain or all int8) -> the fused decode-stack op (ops/decode_stack.py);
+2. otherwise, when the flash-decode op takes the shape, the per-layer loop
+   with its attention on that op (ops/flash_decode.py): B>1, and B=1 with
+   mixed quantization;
+3. any other case raises on CUDA (the CPU runs the plain loop).
+Each op is the CUDA kernel for a CUDA tensor and its plain twin for a CPU
+tensor. Prompt passes (T>1) and the windowed Mimi stack stay plain PyTorch,
+as they are plain XLA in the JAX package, apart from their products of at
+most 32 rows (nn/linear.py: the gemv op).
 
 The KV append is in place: `append_kv` and the decode-stack kernel write the
 new rows into the state's k/v/pos tensors. A caller that must keep a state
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from pocket_tts_tpu_torch.nn.attention import decode_masks, mha_step
 from pocket_tts_tpu_torch.nn.linear import matmul_t
 from pocket_tts_tpu_torch.nn.rope import rope_tables
+from pocket_tts_tpu_torch.ops.flash_decode import flash_decode_takes
 
 Params = dict[str, Any]
 
@@ -132,12 +138,14 @@ def layer_step(
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
     rope_tabs: tuple[torch.Tensor, torch.Tensor],
-    masks: tuple[torch.Tensor, torch.Tensor],
+    masks: tuple[torch.Tensor, torch.Tensor] | None,
+    att_len: int | None = None,
+    flash_ctx: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = layer_norm(x, p["norm1_scale"], p["norm1_bias"])
     attn_out, k_new, v_new = mha_step(
         p["in_proj"], p["out_proj"], h, cache_k, cache_v, rope_tabs, masks,
-        num_heads=cfg.num_heads,
+        num_heads=cfg.num_heads, att_len=att_len, flash_ctx=flash_ctx,
     )
     if "ls1" in p:
         attn_out = attn_out * p["ls1"]
@@ -218,26 +226,39 @@ def transformer_apply(
     transformers (Mimi decoder); the default is the append-ordered linear
     cache (FlowLM). `increment`: the true (unpadded) length of x per row when
     the input is right-padded; offsets advance by it, write_pos by T.
+    A T=1 step over the linear cache attends only the slots below the write
+    pointer (the JAX package's `att_len`): slots fill in write order, so no
+    valid slot lies at or above it.
     """
-    from pocket_tts_tpu_torch.ops.decode_stack import decode_stack_apply
+    from pocket_tts_tpu_torch.ops.decode_stack import decode_stack_apply, stack_takes
 
     B, T, _ = x.shape
-    if not window and T == 1:
-        if B == 1 and cfg.context is None and cfg.layer_scale is None:
-            return decode_stack_apply(cfg, params, x, state)
-        if x.is_cuda:
-            raise NotImplementedError(
-                f"T=1 decode over the linear cache at B={B} on CUDA: only the "
-                "B=1 decode-stack kernel is ported (batched decode waits for "
-                "the flash-decode kernel)")
+    C = state.k.shape[2]
     dh = cfg.d_model // cfg.num_heads
+    att = None  # attended slots: all of them
+    flash = False
+    if not window and T == 1:
+        if stack_takes(cfg, params, x):
+            return decode_stack_apply(cfg, params, x, state)
+        att = min(state.write_pos, C)
+        flash = cfg.context is None and flash_decode_takes(att, dh)
+        if not flash and x.device.type != "cpu":
+            raise NotImplementedError(
+                f"T=1 decode over the linear cache on CUDA at B={B}, head dim {dh}, "
+                f"{att} attended slots, context {cfg.context}: neither the "
+                "decode-stack nor the flash-decode kernel takes it")
     tabs = rope_tables(state.offset, T, dh, cfg.max_period, batch=B)
-    masks = decode_masks(state.pos, state.offset, T, cfg.context)
+    if flash:
+        masks, flash_ctx = None, (state.pos, state.offset)
+    else:
+        pos_cache = state.pos if att is None else state.pos[:, :att]
+        masks, flash_ctx = decode_masks(pos_cache, state.offset, T, cfg.context), None
     h = x
     ks, vs = [], []
     for layer in range(cfg.num_layers):
         h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
-                                     state.k[layer], state.v[layer], tabs, masks)
+                                     state.k[layer], state.v[layer], tabs, masks,
+                                     att_len=att, flash_ctx=flash_ctx)
         ks.append(k_new)
         vs.append(v_new)
     ks = torch.stack(ks)

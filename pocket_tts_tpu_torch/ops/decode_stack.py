@@ -21,6 +21,13 @@ kernel design (csrc/decode_stack.cu) streams each weight row once with
 16-byte loads and fuses every small op into a GEMV prologue/epilogue or the
 attention kernel.
 
+int8 weights (quant.py's {"q", "s"} dicts, all four products or none) go to
+the kernel's int8 rows: 16 weights per 16-byte load and each row's f32
+scale in the epilogue, at nn/linear.matmul_t's rounding points (the product
+rounded to the working dtype, times the scale, rounded again). Mixed
+quantization is not this op's: nn/transformer.py sends it down the
+per-layer loop with the flash-decode op (`stack_takes`).
+
 Unlike the TPU kernel, the weights stay in the port's own per-layer
 row-major layout (no packing), bf16 and f32 weights and caches are both
 taken (so the small test model and an f32 model run on the kernel too), and
@@ -36,6 +43,7 @@ import ctypes
 import torch
 
 from pocket_tts_tpu_torch.nn.attention import decode_masks
+from pocket_tts_tpu_torch.nn.linear import _plain_products
 from pocket_tts_tpu_torch.nn.rope import rope_tables
 from pocket_tts_tpu_torch.nn.transformer import (
     StackState,
@@ -46,35 +54,48 @@ from pocket_tts_tpu_torch.nn.transformer import (
 from pocket_tts_tpu_torch.ops.build import CudaKernel, check
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_WEIGHTS = ("in_proj", "out_proj", "w1", "w2",
-            "norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias")
+_PRODUCTS = ("in_proj", "out_proj", "w1", "w2")
+_NORMS = ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     f = lib.decode_stack_run
     f.restype = ctypes.c_int
-    f.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
+    f.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 17
                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 KERNEL = CudaKernel("decode_stack", _bind)
 
 
+def _quantized(params: dict) -> list[str]:
+    return [k for k in _PRODUCTS if isinstance(params[k], dict)]
+
+
+def stack_takes(cfg: TransformerConfig, params: dict, x: torch.Tensor) -> bool:
+    """The routing predicate of nn/transformer.py: a B=1, T=1 step with no
+    context or layer scale, whose four products are all plain or all int8."""
+    B, T, _ = x.shape
+    quant = _quantized(params)
+    return (B == 1 and T == 1 and cfg.context is None and cfg.layer_scale is None
+            and len(quant) in (0, len(_PRODUCTS)))
+
+
 def _validate(cfg: TransformerConfig, params: dict, x: torch.Tensor,
               state: StackState) -> None:
     B, T, D = x.shape
-    if B != 1 or T != 1:
-        raise NotImplementedError(f"decode_stack takes B=1, T=1 (got B={B}, T={T})")
-    if cfg.context is not None or cfg.layer_scale is not None:
-        raise NotImplementedError("decode_stack takes no attention context or layer scale")
+    quant = _quantized(params)
+    if not stack_takes(cfg, params, x):
+        raise NotImplementedError(
+            f"decode_stack takes a B=1, T=1 step with no context or layer scale and no "
+            f"mixed quantization (got B={B}, T={T}, context={cfg.context}, "
+            f"layer_scale={cfg.layer_scale}, int8: {quant})")
     if D % cfg.num_heads or (D // cfg.num_heads) % 2 or cfg.dim_feedforward % 2:
         raise NotImplementedError("decode_stack needs D % H == 0 and even Dh and F")
-    quant = [k for k in ("in_proj", "out_proj", "w1", "w2") if isinstance(params[k], dict)]
-    if quant and x.device.type != "cpu":
-        raise NotImplementedError(
-            f"int8 weights ({', '.join(quant)}) on CUDA: the int8 kernel is not ported yet")
-    dtypes = {k: (params[k]["q"] if isinstance(params[k], dict) else params[k]).dtype
-              for k in _WEIGHTS if k not in quant}
+    for k in quant:
+        if params[k]["q"].dtype != torch.int8 or params[k]["s"].dtype != torch.float32:
+            raise NotImplementedError(f"decode_stack: {k} is not int8 with f32 scales")
+    dtypes = {k: params[k].dtype for k in _PRODUCTS + _NORMS if k not in quant}
     dtypes.update(cache_k=state.k.dtype, cache_v=state.v.dtype, x=x.dtype)
     if len(set(dtypes.values())) != 1:
         raise NotImplementedError(f"decode_stack: mixed float dtypes {dtypes}")
@@ -88,16 +109,17 @@ def decode_stack_plain(cfg: TransformerConfig, params: dict, x: torch.Tensor,
                        offset: torch.Tensor, write_pos: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x [1, 1, D] -> h [1, 1, D];
     the step's k/v rows are written into cache_k/v [L, 1, C, H, Dh] at
-    `write_pos`."""
+    `write_pos`. Its products stay plain on the card too (no gemv kernel)."""
     dh = cfg.d_model // cfg.num_heads
     tabs = rope_tables(offset, 1, dh, cfg.max_period, batch=1)
     masks = decode_masks(pos, offset, 1, None)
     h = x
-    for layer in range(cfg.num_layers):
-        h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
-                                     cache_k[layer], cache_v[layer], tabs, masks)
-        cache_k[layer, :, write_pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[layer, :, write_pos] = v_new[:, 0].to(cache_v.dtype)
+    with _plain_products():
+        for layer in range(cfg.num_layers):
+            h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
+                                         cache_k[layer], cache_v[layer], tabs, masks)
+            cache_k[layer, :, write_pos] = k_new[:, 0].to(cache_k.dtype)
+            cache_v[layer, :, write_pos] = v_new[:, 0].to(cache_v.dtype)
     return h
 
 
@@ -105,8 +127,13 @@ def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
                        cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
                        offset: torch.Tensor, write_pos: int) -> torch.Tensor:
     lib = KERNEL.load()
-    tensors = {"x": x, "cache_k": cache_k, "cache_v": cache_v, "pos": pos,
-               "offset": offset, **{k: params[k] for k in _WEIGHTS}}
+    quant = bool(_quantized(params))
+    weights = [params[k]["q"] if quant else params[k] for k in _PRODUCTS]
+    scales = [params[k]["s"] for k in _PRODUCTS] if quant else []
+    norms = [params[k] for k in _NORMS]
+    tensors = {"x": x, "cache_k": cache_k, "cache_v": cache_v, "pos": pos, "offset": offset,
+               **dict(zip(_PRODUCTS, weights)), **dict(zip(_NORMS, norms)),
+               **{f"{k} scales": t for k, t in zip(_PRODUCTS, scales)}}
     for name, t in tensors.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"decode_stack: {name} is on {t.device}, x on {x.device}")
@@ -120,12 +147,11 @@ def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
     D, Ff = cfg.d_model, cfg.dim_feedforward
     h = x.reshape(D).clone()  # the kernel's residual stream, updated in place
     scratch = torch.empty(4 * D + Ff, dtype=x.dtype, device=x.device)
-    p = params
     err = lib.decode_stack_run(
-        _DTYPES[x.dtype], L, D, H, Ff, C, h.data_ptr(),
-        p["in_proj"].data_ptr(), p["out_proj"].data_ptr(), p["w1"].data_ptr(),
-        p["w2"].data_ptr(), p["norm1_scale"].data_ptr(), p["norm1_bias"].data_ptr(),
-        p["norm2_scale"].data_ptr(), p["norm2_bias"].data_ptr(),
+        _DTYPES[x.dtype], int(quant), L, D, H, Ff, C, h.data_ptr(),
+        *(t.data_ptr() for t in weights),
+        *((t.data_ptr() for t in scales) if quant else [None] * len(_PRODUCTS)),
+        *(t.data_ptr() for t in norms),
         cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), offset.data_ptr(),
         write_pos, float(cfg.max_period), scratch.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -119,3 +119,19 @@ def expand_state(state: StackState, capacity: int) -> StackState:
         offset=state.offset,
         write_pos=state.write_pos,
     )
+
+
+def batch_states(states: list[StackState], capacity: int) -> StackState:
+    """Stack several B=1 voice states into one batched state (per-row offsets).
+
+    Rows keep their own slot layouts (pos maps them); the merged write
+    pointer is the max, so appends land on fresh slots for every row. The
+    result is new tensors: the callers' states are never written."""
+    expanded = [expand_state(s, capacity) for s in states]
+    return StackState(
+        k=torch.cat([s.k for s in expanded], dim=1),
+        v=torch.cat([s.v for s in expanded], dim=1),
+        pos=torch.cat([s.pos for s in expanded], dim=0),
+        offset=torch.cat([s.offset for s in expanded]),
+        write_pos=max(s.write_pos for s in expanded),
+    )

@@ -1,6 +1,7 @@
-"""TTS pipeline orchestrator: the public TTSModel, batch 1.
-Port of pocket_tts_tpu/pipeline/tts.py (`generate_audio`,
-`generate_audio_stream` and the pieces they run).
+"""TTS pipeline orchestrator: the public TTSModel.
+Port of pocket_tts_tpu/pipeline/tts.py (`load_model`, `generate_audio`,
+`generate_audio_stream`, `generate_audio_batch(_from_texts)` and the pieces
+they run).
 
 Per sentence chunk: the text prompt fills the KV cache (a T>1 pass), then
 frames are decoded in blocks of K (the `_block_size` ramp: single frames
@@ -12,6 +13,14 @@ with one copy. Emission follows the JAX package exactly (`_ChunkEmit`): the
 frames after the first EOS, the frames-after-EOS allowance and the break
 step. The JAX package overlaps those copies with later dispatches on a
 background thread (`_FetchPipe`); here each block is copied when it is done.
+
+Batched generation (`generate_audio_batch`) runs B utterances as the rows of
+one state: one prompt pass over right-padded token rows with per-row true
+lengths, then the same block ramp for all rows (the FlowLM step on the
+flash-decode and gemv kernels on the card), with per-row EOS latching; each
+row's audio is cut at its own frame. `load_model(quantize=...)` makes the
+FlowLM's weights int8 (quant.py): the decode stack's int8 rows at B=1, the
+gemv kernel's at B>1.
 
 State: the KV append is in place (nn/transformer.py), so every chunk starts
 from a copy of the voice state, in the model's dtype: with copy_state=True
@@ -65,9 +74,15 @@ from pocket_tts_tpu_torch.models.mimi import (
 )
 from pocket_tts_tpu_torch.nn.transformer import StackState
 from pocket_tts_tpu_torch.pipeline.states import (
+    batch_states,
     expand_state,
     export_model_state,
     import_model_state,
+)
+from pocket_tts_tpu_torch.quant import (
+    RECOMMENDED_CONFIG,
+    quantize_flow_lm_int8,
+    resolve_config,
 )
 from pocket_tts_tpu_torch.text.sentencepiece import SentencePieceTokenizer
 from pocket_tts_tpu_torch.text.splitter import prepare_text_prompt, split_into_best_sentences
@@ -212,6 +227,7 @@ class TTSModel:
 
     @property
     def _dtype(self) -> torch.dtype:
+        """The activation and cache dtype (int8 weights keep it)."""
         return self.params["input_linear"].dtype
 
     @property
@@ -237,6 +253,8 @@ class TTSModel:
         lsd_decode_steps: int = DEFAULT_LSD_DECODE_STEPS,
         noise_clamp: float | None = DEFAULT_NOISE_CLAMP,
         eos_threshold: float = DEFAULT_EOS_THRESHOLD,
+        quantize: bool = False,
+        quantize_config: str | frozenset | set | None = None,
         allow_random_init: bool = False,
         param_dtype: str = "float32",
         device: str | torch.device | None = None,
@@ -249,8 +267,10 @@ class TTSModel:
         distributions, not its bits).
         The tokenizer loads when the config names a local file.
         `param_dtype`: "float32" or "bfloat16" (serving); the flow head and
-        all norm/softmax math stay f32 either way. `device`: CUDA unless
-        "cpu" is asked for."""
+        all norm/softmax math stay f32 either way. `quantize_config`: which
+        groups to make int8 (a named config such as "attention_ffn", the
+        default, or "all", or a set of groups); setting it implies
+        `quantize=True`. `device`: CUDA unless "cpu" is asked for."""
         if config is not None and language is not None:
             raise ValueError("Cannot specify both config and language.")
         if config is None:
@@ -292,6 +312,10 @@ class TTSModel:
                 return t.to(dtype) if t.dtype == torch.float32 else t
 
             params, mimi_params = tree_map(cast, params), tree_map(cast, mimi_params)
+        if quantize or quantize_config is not None:
+            groups = (RECOMMENDED_CONFIG if quantize_config is None
+                      else resolve_config(quantize_config))
+            params = quantize_flow_lm_int8(params, groups)
         return cls(specs, mimi_specs, params, mimi_params, tokenizer, cfg, gen, dev)
 
     # ------------------------------------------------------------- voice state
@@ -338,6 +362,53 @@ class TTSModel:
         covering `slots_needed`; never shrinks."""
         cap = _bucket(slots_needed, CAPACITY_BUCKETS)
         return expand_state(lm_state, cap) if cap > lm_state.k.shape[2] else lm_state
+
+    def _working_state(self, state: StackState, capacity: int,
+                       fresh: bool = False) -> StackState:
+        """`state` grown to `capacity` slots, in the model's dtype, in tensors
+        of its own: the in-place KV append must not reach the caller's state.
+        `fresh`: `state` is already a copy (batch_states' output)."""
+        st = expand_state(state, capacity)
+        if (st is state and not fresh) or st.k.dtype != self._dtype:
+            st = StackState(st.k.to(self._dtype, copy=True), st.v.to(self._dtype, copy=True),
+                            st.pos.clone(), st.offset.clone(), st.write_pos)
+        return st
+
+    def _block_noise(self, gen: torch.Generator | None, noise_source: Callable | None,
+                     K: int, B: int) -> torch.Tensor:
+        """[K, B, ldim] flow noise for one block: drawn on the device, or asked
+        of `noise_source` as (B, ldim) when K=1 and (K, B, ldim) otherwise."""
+        ldim = self.specs.ldim
+        if noise_source is None:
+            return self._noise(gen, (K, B, ldim))
+        noise = noise_source((B, ldim) if K == 1 else (K, B, ldim))
+        return torch.as_tensor(noise, dtype=torch.float32).reshape(K, B, ldim).to(self.device)
+
+    def _decode_block(self, lm_state: StackState, mimi_state: dict, prev_latent: torch.Tensor,
+                      is_bos: torch.Tensor, noise: torch.Tensor):
+        """K frames for every row: K FlowLM decode steps (is_bos applies to the
+        first), then the block's latents through the Mimi decoder in one call.
+        Returns (last latent [B, ldim], EOS flags [K, B], audio [K, B, 1, 1920],
+        lm_state, mimi_state)."""
+        K, B = noise.shape[0], noise.shape[1]
+        latents, flags = [], []
+        for i in range(K):
+            latent, eos, lm_state = decode_step(
+                self.specs, self.params, lm_state, prev_latent, is_bos, noise[i],
+                lsd_steps=self.gen.lsd_decode_steps, eos_threshold=self.gen.eos_threshold)
+            latents.append(latent)
+            flags.append(eos)
+            prev_latent = latent
+            is_bos = torch.zeros_like(is_bos)
+        self.decode_steps += K
+        stacked = torch.stack(latents)  # [K, B, ldim]
+        denorm = stacked * self.params["emb_std"] + self.params["emb_mean"]
+        quantized = project_latent(self.mimi_specs, self.mimi_params,
+                                   denorm.permute(1, 2, 0))  # [B, 512, K]
+        audio, mimi_state = decoder_step(self.mimi_specs, self.mimi_params, quantized,
+                                         mimi_state)  # [B, 1, K*1920]
+        audio = audio.reshape(B, 1, K, -1).permute(2, 0, 1, 3)  # [K, B, 1, 1920]
+        return prev_latent, torch.stack(flags), audio, lm_state, mimi_state
 
     def _noise(self, gen: torch.Generator, shape) -> torch.Tensor:
         """Flow noise on the device: N(0, temp), truncated to ±noise_clamp by
@@ -396,19 +467,12 @@ class TTSModel:
         slots_used = model_state.write_pos
         pad_to = _bucket(token_count, PROMPT_BUCKETS)
 
-        # the in-place KV append must not reach the caller's voice state: work
-        # on a copy, in the model's dtype
-        lm_state = expand_state(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
-        if lm_state is model_state or lm_state.k.dtype != self._dtype:
-            lm_state = StackState(lm_state.k.to(self._dtype, copy=True),
-                                  lm_state.v.to(self._dtype, copy=True),
-                                  lm_state.pos.clone(), lm_state.offset.clone(),
-                                  lm_state.write_pos)
+        lm_state = self._working_state(model_state,
+                                       _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
         mimi_state = init_decoder_state(self.mimi_specs, 1, self._dtype, self.device)
-        lm_state = self._prompt_text_tokens(lm_state, tokens)
+        lm_state = self._prompt_text_tokens(lm_state, [tokens])
 
-        ldim = self.specs.ldim
-        prev_latent = torch.zeros((1, ldim), dtype=torch.float32, device=self.device)
+        prev_latent = torch.zeros((1, self.specs.ldim), dtype=torch.float32, device=self.device)
         is_bos = torch.ones((1,), dtype=torch.bool, device=self.device)
         gen = None
         if noise_source is None:
@@ -422,29 +486,11 @@ class TTSModel:
         while frames_started < max_gen_len and not run.stop:
             K = _block_size(frames_started, warm=spec.get("warm_start", False))
             lm_state = self._ensure_capacity(lm_state, start_slots + frames_started + K)
-            if noise_source is None:
-                noise = self._noise(gen, (K, 1, ldim))
-            else:
-                noise = torch.as_tensor(noise_source((1, ldim) if K == 1 else (K, 1, ldim)),
-                                        dtype=torch.float32).reshape(K, 1, ldim).to(self.device)
-            latents, flags = [], []
-            for i in range(K):
-                latent, eos, lm_state = decode_step(
-                    self.specs, self.params, lm_state, prev_latent, is_bos, noise[i],
-                    lsd_steps=self.gen.lsd_decode_steps, eos_threshold=self.gen.eos_threshold)
-                latents.append(latent)
-                flags.append(eos)
-                prev_latent = latent
-                is_bos = torch.zeros_like(is_bos)
-            self.decode_steps += K
-            latents = torch.stack(latents)  # [K, 1, ldim]
-            denorm = latents * self.params["emb_std"] + self.params["emb_mean"]
-            quantized = project_latent(self.mimi_specs, self.mimi_params,
-                                       denorm.permute(1, 2, 0))  # [1, 512, K]
-            audio, mimi_state = decoder_step(self.mimi_specs, self.mimi_params, quantized,
-                                             mimi_state)  # [1, 1, K*1920]
-            audio = audio.reshape(1, 1, K, -1).permute(2, 0, 1, 3)  # [K, 1, 1, 1920]
-            host_flags = torch.stack(flags).cpu().numpy()
+            noise = self._block_noise(gen, noise_source, K, 1)
+            prev_latent, flags, audio, lm_state, mimi_state = self._decode_block(
+                lm_state, mimi_state, prev_latent, is_bos, noise)
+            is_bos = torch.zeros_like(is_bos)
+            host_flags = flags.cpu().numpy()
             host_audio = audio.float().cpu().numpy()
             run.emit(frames_started, host_flags, host_audio, out)
             frames_started += K
@@ -475,12 +521,18 @@ class TTSModel:
         model_state.offset = final_offset
         model_state.write_pos = lm_state.write_pos
 
-    def _prompt_text_tokens(self, lm_state: StackState, tokens: list[int]) -> StackState:
-        pad_to = _bucket(len(tokens), PROMPT_BUCKETS)
-        tok = torch.zeros((1, pad_to), dtype=torch.long)
-        tok[0, : len(tokens)] = torch.as_tensor(tokens, dtype=torch.long)
+    def _prompt_text_tokens(self, lm_state: StackState,
+                            token_lists: list[list[int]]) -> StackState:
+        """One prompt pass over the rows' tokens, right-padded to a
+        PROMPT_BUCKETS bucket; each row's offset advances by its true length."""
+        counts = [len(t) for t in token_lists]
+        tok = torch.zeros((len(token_lists), _bucket(max(counts), PROMPT_BUCKETS)),
+                          dtype=torch.long)
+        for i, tokens in enumerate(token_lists):
+            tok[i, : len(tokens)] = torch.as_tensor(tokens, dtype=torch.long)
         emb = embed_text_tokens(self.params, tok.to(self.device))
-        return prompt_step(self.specs, self.params, lm_state, emb, true_len=len(tokens))
+        true_len = torch.tensor(counts, dtype=torch.int32, device=self.device)
+        return prompt_step(self.specs, self.params, lm_state, emb, true_len=true_len)
 
     def generate_audio(
         self,
@@ -500,3 +552,111 @@ class TTSModel:
         ))
         return np.concatenate(chunks, axis=0) if chunks else np.zeros((0,), np.float32)
 
+    # --------------------------------------------------------------- batched
+
+    def generate_audio_batch(
+        self,
+        model_states: list[StackState] | StackState,
+        token_lists: list[list[int]],
+        frames_after_eos: int = 3,
+        seed: int | None = None,
+        noise_source: Callable | None = None,
+    ) -> list[np.ndarray]:
+        """Batched decode of B utterances, one per row: `model_states` is a
+        list of B voice states (B=1 each) or one state with B rows; neither
+        is written. Per-row EOS latching and ragged emission: rows finish
+        independently and each row's audio is cut at its own frame.
+        `noise_source` as in generate_audio_stream, asked for (B, ldim) when
+        K=1 and (K, B, ldim) otherwise."""
+        token_counts = [len(t) for t in token_lists]
+        B = len(token_lists)
+        max_gen_len = self._estimate_max_gen_len(max(token_counts))
+        pad_to = _bucket(max(token_counts), PROMPT_BUCKETS)
+        batched = not isinstance(model_states, list)
+        slots_used = (model_states.write_pos if batched
+                      else max(s.write_pos for s in model_states))
+        # start small; _ensure_capacity grows the cache per block
+        capacity = _bucket(slots_used + pad_to, CAPACITY_BUCKETS)
+        if batched:
+            lm_state = self._working_state(model_states, capacity)
+        else:
+            lm_state = self._working_state(batch_states(model_states, capacity), capacity,
+                                           fresh=True)
+        if lm_state.offset.shape[0] != B:
+            raise ValueError(f"{lm_state.offset.shape[0]} voice rows for {B} token lists")
+        mimi_state = init_decoder_state(self.mimi_specs, B, self._dtype, self.device)
+        lm_state = self._prompt_text_tokens(lm_state, token_lists)
+
+        gen = None
+        if noise_source is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed if seed is not None else _fresh_seed())
+        prev_latent = torch.zeros((B, self.specs.ldim), dtype=torch.float32, device=self.device)
+        eos_step = np.full((B,), -1, np.int64)
+        end_step = np.full((B,), max_gen_len, np.int64)
+        blocks: list[np.ndarray] = []  # [K, B, 1920] each
+        start_slots = slots_used + pad_to
+        step = 0
+        done = False
+        while step < max_gen_len and not done:
+            K = _block_size(step)
+            lm_state = self._ensure_capacity(lm_state, start_slots + step + K)
+            is_bos = torch.full((B,), step == 0, dtype=torch.bool, device=self.device)
+            noise = self._block_noise(gen, noise_source, K, B)
+            prev_latent, flags, audio, lm_state, mimi_state = self._decode_block(
+                lm_state, mimi_state, prev_latent, is_bos, noise)
+            host_flags = flags.cpu().numpy()
+            blocks.append(audio[:, :, 0].float().cpu().numpy())
+            for i in range(K):
+                s = step + i
+                if s >= max_gen_len:
+                    break
+                self._update_row_cuts(host_flags[i], s, eos_step, end_step, frames_after_eos)
+                if (end_step <= s).all():
+                    done = True
+                    break
+            step += K
+
+        if (eos_step < 0).any():
+            rows = np.nonzero(eos_step < 0)[0].tolist()
+            if os.environ.get("POCKET_TTS_ERROR_WITHOUT_EOS", "0") == "1":
+                raise RuntimeError(
+                    f"Generation reached maximum length without EOS (rows {rows})!")
+            logger.warning("Maximum generation length reached without EOS on rows %s; "
+                           "this very often indicates an error.", rows)
+        stacked = np.concatenate(blocks, axis=0)  # [S, B, 1920]
+        return [stacked[:min(int(end_step[b]), stacked.shape[0]), b].reshape(-1)
+                for b in range(B)]
+
+    def generate_audio_batch_from_texts(
+        self,
+        model_states: list[StackState] | StackState,
+        texts: list[str],
+        frames_after_eos: int | None = None,
+        seed: int | None = None,
+    ) -> list[np.ndarray]:
+        """Batched generation from raw texts (each text must fit one chunk;
+        long texts go through generate_audio_stream per utterance)."""
+        token_lists = []
+        guesses = []
+        for text in texts:
+            prepared, guess = prepare_text_prompt(
+                text, self.pad_with_spaces_for_short_inputs, self.remove_semicolons)
+            token_lists.append(self._encode_text(prepared))
+            guesses.append(guess + 2)
+        if frames_after_eos is None:
+            frames_after_eos = self.model_recommended_frames_after_eos
+        if frames_after_eos is None:
+            frames_after_eos = max(guesses)
+        return self.generate_audio_batch(model_states, token_lists,
+                                         frames_after_eos=frames_after_eos, seed=seed)
+
+    @staticmethod
+    def _update_row_cuts(step_flags, s, eos_step, end_step, frames_after_eos):
+        """Fold one step's per-row EOS flags into the rows' first-EOS steps
+        and cut frames (first EOS + frames_after_eos, at most the limit)."""
+        flags = np.asarray(step_flags)
+        newly = (flags > 0) & (eos_step < 0)
+        eos_step[newly] = s
+        has = eos_step >= 0
+        end_step[has] = np.minimum(end_step[has], eos_step[has] + frames_after_eos)

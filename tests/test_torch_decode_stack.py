@@ -140,3 +140,70 @@ def test_write_pos_outside_capacity_raises(write_pos):
     with pytest.raises(ValueError, match="write_pos"):
         ds.decode_stack_apply(pcfg, port(params), port(x), st)
 
+
+
+def quantized(params, keys=("in_proj", "out_proj", "w1", "w2")):
+    """The JAX params with `keys` made int8 by the JAX package's quantizer."""
+    from pocket_tts_tpu.quant import quantize_weight
+
+    return {k: quantize_weight(v) if k in keys else v for k, v in params.items()}
+
+
+def port_params(params, dtype):
+    """JAX params (int8 leaves included) on the port's side: int8 q and f32
+    scales keep their dtypes; float weights take `dtype`."""
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    return {k: port(v) if isinstance(v, dict) else port(v, tdt) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("C,offset", [(32, 10), (48, 30)])
+def test_int8_plain_matches_xla_scan_f32(C, offset):
+    """attention_ffn int8 weights, f32 activations, at 1e-4: the XLA path's
+    rounding points (the product in f32, then the scale), summed in another
+    order."""
+    jcfg, pcfg, params, state, x = make_case(SMALL, C, offset, jnp.float32, seed=11)
+    qp = quantized(params)
+    h_ref, st_ref = transformer_apply(jcfg, qp, x, state, unroll=True)
+    st = port(state, torch.float32)
+    before = st.clone()
+    h, new = ds.decode_stack_apply(pcfg, port_params(qp, jnp.float32), port(x), st)
+    np.testing.assert_allclose(host(h), host(h_ref), rtol=1e-4, atol=1e-4)
+    assert_state(new, st_ref, before, int(state.write_pos), 1e-4)
+
+
+def test_int8_plain_matches_xla_scan_flagship_bf16():
+    """Flagship width, 2 layers, int8 weights over bf16 activations, at the
+    bf16-grade 5e-2 of tests/test_decode_stack.py."""
+    jcfg, pcfg, params, state, x = make_case(FLAGSHIP, 256, 100, jnp.bfloat16, seed=13)
+    qp = quantized(params)
+    h_ref, st_ref = transformer_apply(jcfg, qp, x, state, unroll=True)
+    st = port(state, torch.bfloat16)
+    before = st.clone()
+    h, new = ds.decode_stack_apply(pcfg, port_params(qp, jnp.bfloat16), port(x, torch.bfloat16),
+                                   st)
+    np.testing.assert_allclose(host(h), host(h_ref), rtol=5e-2, atol=5e-2)
+    assert_state(new, st_ref, before, int(state.write_pos), 5e-2)
+
+
+def test_mixed_quantization_takes_the_flash_route(monkeypatch):
+    """Only some products int8 (the "ffn" config): not the decode stack's;
+    the per-layer loop with flash-decode attention runs it instead, and
+    matches the XLA scan at 1e-4 in f32."""
+    from pocket_tts_tpu_torch.ops import flash_decode as fd
+
+    calls = []
+    orig = fd.flash_decode_plain
+    monkeypatch.setattr(fd, "flash_decode_plain",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    jcfg, pcfg, params, state, x = make_case(SMALL, 32, 10, jnp.float32, seed=17)
+    qp = quantized(params, keys=("w1", "w2"))
+    pp = port_params(qp, jnp.float32)
+    assert not ds.stack_takes(pcfg, pp, port(x))
+    with pytest.raises(NotImplementedError, match="mixed quantization"):
+        ds.decode_stack_apply(pcfg, pp, port(x), port(state))
+    h_ref, st_ref = transformer_apply(jcfg, qp, x, state, unroll=True)
+    h, new = port_transformer_apply(pcfg, pp, port(x), port(state))
+    assert calls == [1] * pcfg.num_layers
+    np.testing.assert_allclose(host(h), host(h_ref), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(host(new.k), host(st_ref.k), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(host(new.pos), np.asarray(st_ref.pos))

@@ -18,6 +18,9 @@ from pocket_tts_tpu_torch.nn.seanet import init_seanet_params, init_seanet_state
 from pocket_tts_tpu_torch.nn.transformer import TransformerConfig, init_layer_params
 from pocket_tts_tpu_torch.ops import codec_decode as cd
 from pocket_tts_tpu_torch.ops import decode_stack as ds
+from pocket_tts_tpu_torch.ops import flash_decode as fd
+from pocket_tts_tpu_torch.ops import gemv as gv
+from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8, quantize_weight
 
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -55,12 +58,16 @@ def leaves(tree):
     (dict(d_model=64, num_heads=4, num_layers=2, dim_feedforward=128), 32, 10),
     (dict(d_model=1024, num_heads=16, num_layers=6, dim_feedforward=4096), 256, 100),
 ], ids=["small", "flagship"])
-def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset):
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset, quant):
     """A mid-generation cache (a dead slot, 7 speculative slots past the
-    offset): same output, same appended row, every other slot untouched."""
+    offset): same output, same appended row, every other slot untouched; for
+    plain weights and for int8 rows (attention_ffn)."""
     cfg = TransformerConfig(**geom)
     L, H, D = cfg.num_layers, cfg.num_heads, cfg.d_model
     params = init_layer_params(cfg, card, dtype, "cuda")
+    if quant:
+        params = quantize_flow_lm_int8({"transformer": params})["transformer"]
     k = (torch.randn((L, 1, C, H, D // H), generator=card, device="cuda") * 0.5).to(dtype)
     v = (torch.randn((L, 1, C, H, D // H), generator=card, device="cuda") * 0.5).to(dtype)
     wp = offset + 7
@@ -80,13 +87,85 @@ def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset):
     assert torch.equal(vk[:, :, others], v[:, :, others])
 
 
+GEMV_KINDS = {  # x dtype, weight dtype, int8 (quantized from weights of that dtype)
+    "bf16": (torch.bfloat16, torch.bfloat16, False),
+    "f32": (torch.float32, torch.float32, False),
+    "f32-over-bf16": (torch.float32, torch.bfloat16, False),
+    "int8-bf16": (torch.bfloat16, torch.bfloat16, True),
+    "int8-f32": (torch.float32, torch.float32, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(GEMV_KINDS))
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("O,I", [(3072, 1024), (1024, 4096), (512, 256)])
+def test_gemv_kernel_matches_plain(card, kind, R, O, I):
+    """Every activation/weight pairing of the route, at 1-32 rows, for the
+    FlowLM's in_proj and w2 shapes and a flow-head shape."""
+    xdt, wdt, quant = GEMV_KINDS[kind]
+    x = torch.randn((R, I), generator=card, device="cuda").to(xdt)
+    w = (torch.randn((O, I), generator=card, device="cuda") / I ** 0.5).to(wdt)
+    if quant:
+        w = quantize_weight(w)
+    y_k = gv._gemv_cuda(x, w)
+    y_p = gv.gemv_plain(x, w)
+    assert y_k.dtype == y_p.dtype and y_k.shape == (R, O)
+    assert_close_rel(y_k, y_p, y_p.dtype)
+
+
+def flash_case(g, B, C, H, Dh, dtype, att):
+    """Dead slots, slots past the offset, per-row offsets, row 0 all dead;
+    v_new a strided view of a packed qkv row, as qkv_project gives it."""
+    q = torch.randn((B, H, Dh), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, C, H, Dh), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, C, H, Dh), generator=g, device="cuda").to(dtype)
+    packed = torch.randn((B, 3, H, Dh), generator=g, device="cuda").to(dtype)
+    kn, vn = packed[:, 1], packed[:, 2]
+    pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
+    offset = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    for b in range(1, B):
+        fill = min(att, 5 + (att * b) // B)
+        p = torch.arange(fill, dtype=torch.int32, device="cuda")
+        p[3::7] = -1
+        pos[b, :fill] = p
+        offset[b] = max(fill - 4, 0)  # the last slots lie past the offset
+    return q, k, v, kn, vn, pos, offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,C,H,Dh,att", [
+    (8, 256, 16, 64, 200), (3, 1024, 16, 64, 1024), (4, 64, 4, 16, 40), (2, 48, 2, 6, 48),
+], ids=["b8", "b3-full", "small", "narrow-dh"])
+def test_flash_decode_kernel_matches_plain(card, dtype, B, C, H, Dh, att):
+    """att_len below and at the capacity, the small model's Dh=16, and a head
+    dim that takes the narrow (non-16-byte) loads."""
+    args = flash_case(card, B, C, H, Dh, dtype, att)
+    out_k = fd._flash_decode_cuda(*args, att_len=att)
+    out_p = fd.flash_decode_plain(*args, att_len=att)
+    assert out_k.dtype == dtype and out_k.shape == (B, H, Dh)
+    assert_close_rel(out_k, out_p, dtype)
+    assert_close_rel(out_k[0], args[4][0], dtype)  # all dead: the new value alone
+
+
+@pytest.mark.cuda
+def test_flash_decode_skips_nan_in_dead_slots(card):
+    """Dead slots are skipped, never multiplied by a zero weight."""
+    args = list(flash_case(card, 2, 64, 4, 16, torch.float32, 64))
+    dead = args[5] < 0
+    args[2] = torch.where(dead[:, :, None, None], float("nan"), args[2])
+    assert torch.isfinite(fd._flash_decode_cuda(*args)).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("T", [16, 128])
 @pytest.mark.parametrize("small", [False, True], ids=["english", "small"])
-def test_codec_kernel_matches_plain(card, dtype, T, small):
+@pytest.mark.parametrize("B", [1, 4])
+def test_codec_kernel_matches_plain(card, dtype, T, small, B):
     """The SEANet decoder with non-zero incoming states: audio and every
-    outgoing state."""
+    outgoing state, for one row and for a batch."""
     mimi = load_config(CONFIGS_DIR / "english.yaml").mimi
     if small:
         mimi = mimi.model_copy(update={"seanet": mimi.seanet.model_copy(
@@ -98,14 +177,14 @@ def test_codec_kernel_matches_plain(card, dtype, T, small):
         return (torch.randn(t.shape, generator=card, device="cuda") * 0.1).to(dtype)
 
     state = {}
-    for key, s in init_seanet_state(spec, 1, dtype, "cuda").items():
+    for key, s in init_seanet_state(spec, B, dtype, "cuda").items():
         if isinstance(s, ConvTrState):
             state[key] = ConvTrState(rnd(s.partial))
         elif isinstance(s, ConvState):
             state[key] = ConvState(rnd(s.previous), torch.zeros_like(s.first))
         else:
             state[key] = [ConvState(rnd(c.previous), torch.zeros_like(c.first)) for c in s]
-    x = torch.randn((1, mimi.seanet.dimension, T), generator=card, device="cuda").to(dtype)
+    x = torch.randn((B, mimi.seanet.dimension, T), generator=card, device="cuda").to(dtype)
     y_k, s_k = cd._codec_decode_cuda(spec, params, x, state)
     y_p, s_p = seanet_apply(spec, params, x, state)
     assert_close_rel(y_k, y_p, dtype)
@@ -131,3 +210,14 @@ def test_kernel_launch_counters_count_kernel_calls(card):
     ds.decode_stack(cfg, {key: t.cpu() for key, t in params.items()},
                     torch.zeros((1, 1, 64)), k.cpu(), k.cpu(), pos.cpu(), off.cpu(), 0)
     assert ds.KERNEL.launches == before + 1
+    x = torch.randn((2, 256), device="cuda")
+    w = torch.randn((128, 256), device="cuda")
+    before = gv.KERNEL.launches
+    gv.gemv(x, w)
+    gv.gemv(x.cpu(), w.cpu())
+    assert gv.KERNEL.launches == before + 1
+    args = flash_case(card, 2, 32, 4, 16, torch.float32, 32)
+    before = fd.KERNEL.launches
+    fd.flash_decode(*args)
+    fd.flash_decode(*(a.cpu() for a in args))
+    assert fd.KERNEL.launches == before + 1

@@ -182,3 +182,58 @@ def test_prompt_step_and_decode_steps(small):
         prev_j, prev_p = np.asarray(lat_j), host(lat_p)
     close(ps.k, js.k, 1e-4)
     assert np.array_equal(host(ps.offset), np.asarray(js.offset))
+
+
+def test_decoder_step_batched(small):
+    """Mimi decode at B=3 (the batched path's [B, 512, K] latents), a 1-frame
+    then a 3-frame block, f32 at 1e-4."""
+    _, _, mspecs, pmspecs, _, mparams = small
+    pp = port(mparams)
+    js = jmimi.init_decoder_state(mspecs, 3)
+    ps = port(js)
+    for K in (1, 3):
+        lat = randn(3, mspecs.outer_dim, K)
+        aj, js = jmimi.decoder_step(mspecs, mparams, jnp.asarray(lat), js)
+        ap, ps = pmimi.decoder_step(pmspecs, pp, torch.from_numpy(lat), ps)
+        assert ap.shape == (3, 1, 1920 * K)
+        close(ap, aj, 1e-4)
+    close(ps["transformer"].k, js["transformer"].k, 1e-4)
+
+
+def test_prompt_step_and_decode_steps_batched(small):
+    """B=3: right-padded prompts with per-row true lengths (5, 2, 8 of 8),
+    then three decode steps with per-row BOS flags (rows 0 and 2 start at the
+    first step, row 1 at the second) over the flash-decode route; f32 at 1e-4
+    over the stacked steps."""
+    specs, pspecs, _, _, params, _ = small
+    pp = port(params)
+    js = jfl.init_flow_lm_state(specs, 3, 32)
+    ps = port(js)
+    true_len = np.array([5, 2, 8], np.int32)
+    tokens = np.zeros((3, 8), np.int32)
+    for b, n in enumerate(true_len):
+        tokens[b, :n] = np.arange(1, n + 1) * (b + 2) % specs.n_bins
+    js = jfl.prompt_step(specs, params, js, jfl.embed_text_tokens(params, jnp.asarray(tokens)),
+                         true_len=jnp.asarray(true_len))
+    ps = pfl.prompt_step(pspecs, pp, ps,
+                         pfl.embed_text_tokens(pp, torch.from_numpy(tokens).long()),
+                         true_len=torch.from_numpy(true_len))
+    close(ps.k, js.k, 1e-4)
+    assert np.array_equal(host(ps.pos), np.asarray(js.pos))
+    assert np.array_equal(host(ps.offset), np.asarray(js.offset))
+    prev_j = prev_p = randn(3, specs.ldim)
+    for bos in ([True, False, True], [False, True, False], [False, False, False]):
+        noise = randn(3, specs.ldim, scale=0.8)
+        bos = np.array(bos)
+        lat_j, eos_j, js = jfl.decode_step(specs, params, js, jnp.asarray(prev_j),
+                                           jnp.asarray(bos), jnp.asarray(noise),
+                                           lsd_steps=2, eos_threshold=0.0)
+        lat_p, eos_p, ps = pfl.decode_step(pspecs, pp, ps, torch.from_numpy(prev_p),
+                                           torch.from_numpy(bos), torch.from_numpy(noise),
+                                           lsd_steps=2, eos_threshold=0.0)
+        close(lat_p, lat_j, 1e-4)
+        assert np.array_equal(host(eos_p), np.asarray(eos_j))
+        prev_j, prev_p = np.asarray(lat_j), host(lat_p)
+    close(ps.k, js.k, 1e-4)
+    assert np.array_equal(host(ps.pos), np.asarray(js.pos))
+    assert ps.write_pos == int(js.write_pos)

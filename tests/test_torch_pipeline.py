@@ -154,3 +154,124 @@ def test_state_for_conditioning_matches_jax_prompt(models):
     np.testing.assert_array_equal(host(got.pos), np.asarray(ref.pos))
     np.testing.assert_array_equal(host(got.offset), np.asarray(ref.offset))
     assert got.write_pos == int(ref.write_pos)
+
+
+# Batched generation (generate_audio_batch) at B=3: three voices of different
+# lengths (ragged write pointers), ragged token rows, frame-indexed noise
+# [frames, B, ldim] served K frames at a time. EOS_SPLIT was picked from the
+# JAX run's per-row EOS: every threshold in [0.12, 0.15] gives first-EOS
+# steps (8, 14, 3) in f32 and int8 alike (0.10 moves row 1, 0.16 row 0), so
+# the rows end in different blocks of the 1-1-8-8... ramp.
+BATCH_TOKENS = [[0, 5, 17, 3], [0, 9, 2], [0, 1, 22, 13, 4, 25, 6]]
+EOS_SPLIT = 0.135
+
+
+@pytest.fixture(scope="module")
+def batch_voices(models, tmp_path_factory):
+    jm = models[0]
+    files = []
+    for i, n in enumerate((24000, 16000, 30000)):
+        audio = (np.random.default_rng(5 + i).standard_normal((1, 1, n)) * 0.1).astype(np.float32)
+        f = tmp_path_factory.mktemp("voices") / f"voice{i}.safetensors"
+        export_model_state(jm.get_state_for_audio_prompt(audio), f)
+        files.append(f)
+    return files
+
+
+def batch_noise(B, ldim, temp, seed=0):
+    noise = np.random.default_rng(seed).standard_normal((400, B, ldim)).astype(np.float32)
+    noise *= temp ** 0.5
+    served = 0
+
+    def source(shape):
+        nonlocal served
+        k = 1 if len(shape) == 2 else shape[0]
+        out = noise[served:served + k].reshape(shape)
+        served += k
+        return out
+
+    return source
+
+
+def row_eos(monkeypatch, mod):
+    """The per-row first-EOS steps of the last batched run on one side."""
+    seen = {}
+    orig = mod.TTSModel._update_row_cuts
+
+    def spy(flags, s, eos_step, end_step, frames_after_eos):
+        seen["eos"] = eos_step
+        return orig(flags, s, eos_step, end_step, frames_after_eos)
+
+    monkeypatch.setattr(mod.TTSModel, "_update_row_cuts", staticmethod(spy))
+    return seen
+
+
+@pytest.mark.parametrize("quantize", [None, "attention_ffn"], ids=["f32", "int8"])
+def test_generate_audio_batch_matches_jax(models, batch_voices, monkeypatch, quantize):
+    """Per-row EOS steps and output lengths equal to the JAX package's, each
+    row's waveform at 1e-3 (the loop compounds f32 differences over up to 17
+    frames), and the callers' states bit-unchanged: three B=1 states in f32,
+    one batched state (the port's batch_states) with int8 weights. The int8
+    weights are the port's quantizer's (bit-equal to the JAX package's); at
+    B=3 every FlowLM step goes through the flash-decode op."""
+    from pocket_tts_tpu import quant as jq
+    from pocket_tts_tpu_torch.pipeline.states import batch_states
+    from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8
+
+    jm, pm, _ = models
+    jparams, pparams = jm.params, pm.params
+    if quantize:
+        jm.params = jq.quantize_flow_lm_int8(jparams, quantize)
+        pm.params = quantize_flow_lm_int8(pparams, quantize)
+    try:
+        jm.gen = jtts.GenerationParams(eos_threshold=EOS_SPLIT)
+        pm.gen = ptts.GenerationParams(eos_threshold=EOS_SPLIT)
+        ldim, temp = jm.specs.ldim, jm.gen.temp
+        j_eos, p_eos = row_eos(monkeypatch, jtts), row_eos(monkeypatch, ptts)
+        ref = jm.generate_audio_batch([import_model_state(f) for f in batch_voices],
+                                      BATCH_TOKENS, noise_source=batch_noise(3, ldim, temp))
+        voices = [port_import(f, device="cpu") for f in batch_voices]
+        if quantize:
+            voices = batch_states(voices, 256)
+            assert voices.k.shape[1] == 3
+        before = [v.clone() for v in voices] if isinstance(voices, list) else voices.clone()
+        got = pm.generate_audio_batch(voices, BATCH_TOKENS,
+                                      noise_source=batch_noise(3, ldim, temp))
+    finally:
+        jm.params, pm.params = jparams, pparams
+    assert list(j_eos["eos"]) == [8, 14, 3]  # the threshold still splits the rows
+    assert list(p_eos["eos"]) == list(j_eos["eos"])
+    assert [g.size for g in got] == [np.asarray(r).size for r in ref]
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, np.asarray(r), rtol=1e-3, atol=1e-3)
+    for v, b in zip(voices if isinstance(voices, list) else [voices],
+                    before if isinstance(before, list) else [before]):
+        for name in ("k", "v", "pos", "offset"):
+            assert torch.equal(getattr(v, name), getattr(b, name))
+        assert v.write_pos == b.write_pos
+
+
+def test_generate_audio_batch_from_texts_matches_jax(models, batch_voices):
+    """The text entry: per-text prompts, the frames-after-EOS guess, and the
+    default EOS threshold (random weights end every row at once)."""
+    jm, pm, _ = models
+    jm.gen, pm.gen = jtts.GenerationParams(), ptts.GenerationParams()
+    texts = ["hello world test", "one two", "this is a longer test"]
+    ref = jm.generate_audio_batch_from_texts([import_model_state(f) for f in batch_voices],
+                                             texts, seed=0)
+    got = pm.generate_audio_batch_from_texts([port_import(f, device="cpu")
+                                              for f in batch_voices], texts, seed=0)
+    assert [g.size for g in got] == [np.asarray(r).size for r in ref]
+    assert all(g.size % pm.samples_per_frame == 0 and np.isfinite(g).all() for g in got)
+
+
+def test_batch_states_stacks_rows_like_jax(batch_voices):
+    """Rows keep their own slot layouts and offsets; write_pos is the max."""
+    from pocket_tts_tpu.pipeline.states import batch_states as jax_batch_states
+    from pocket_tts_tpu_torch.pipeline.states import batch_states
+
+    ref = jax_batch_states([import_model_state(f) for f in batch_voices], 256)
+    got = batch_states([port_import(f, device="cpu") for f in batch_voices], 256)
+    for name in ("k", "v", "pos", "offset"):
+        np.testing.assert_array_equal(host(getattr(got, name)), host(getattr(ref, name)))
+    assert got.write_pos == int(ref.write_pos)
