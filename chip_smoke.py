@@ -6,19 +6,22 @@
 Phases, each of which makes the script exit non-zero when it fails:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every CUDA kernel of the port from pocket_tts_tpu_torch/csrc (decode
-     stack, codec decoder, flash decode, skinny GEMV), one nvcc per source, in
-     parallel;
+     stack, codec decoder, flash decode, skinny GEMV, stacked int8 GEMV), one
+     nvcc per source, in parallel;
   3. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and f32, at the main paths' shapes, with kernel, plain and library
      times and the bound: decode_stack at the flagship FlowLM width, 6 layers,
-     C in {256, 512}, plain and int8 weights, on a mid-generation cache with
-     dead and speculative slots; codec_decode on the english.yaml decoder at
+     C in {256, 512}, plain and int8 weights, and 24 layers at C=256 in bf16
+     and int8, on a mid-generation cache with dead and speculative slots;
+     codec_decode on the english.yaml decoder at
      B=1 (T = 16 and 16*8) and B=32 (T=16) with its states; flash_decode at
      B in {8, 32}, H=16, Dh=64, C in {256, 1024}, att_len < C, with dead slots,
      slots past the offset and one all-dead row; gemv at 1, 8 and 32 rows for
      every product the paths send it (GEMV_GROUPS): the FlowLM's four, plain
      and int8, the flow head's as f32 activations over bf16 weights, and the
-     Mimi decoder transformer's four;
+     Mimi decoder transformer's four; gemv_stack at the int8 GEMV probe's
+     size (48 x [4096, 1024] int8, -128 and 127 included) at 1, 3, 8, 32 and
+     48 rows;
   4. reference: a small f32 model's generate_audio (B=1) and
      generate_audio_batch (B=4, ragged voices and prompts) on the card
      (kernels, gemv included: the small FlowLM is 128 wide) against the same
@@ -34,7 +37,13 @@ Phases, each of which makes the script exit non-zero when it fails:
      set to 0 just before each path and read just after; each path checks
      the counters its route predicts and that the callers' voice states are
      bit-unchanged, and prints audio-s/s beside the card's name and power
-     limit.
+     limit;
+  6. the 24-layer models: italian_24l b1 in bf16 (2 requests and one
+     streamed, then a profile of one request and of a first chunk) and in
+     int8 (2 requests), with the same checks;
+  7. the int8 GEMV probe (pocket_tts_tpu_torch.tools.int8_gemv_probe): its
+     four variants at full size, 1 and 32 rows, with a 0.15 s chain target,
+     counting gemv_stack's launches.
 The line before the last is one JSON object with the kernels' numbers; the
 last is {"ok": true, "device": {...}}. Matmuls and convolutions run in full
 f32 (TF32 off) wherever f32 is compared.
@@ -45,6 +54,9 @@ arithmetic summed in another order). In bf16 one rounding flipped by the
 summation order moves a value by up to 2^-8 = 3.9e-3 of itself; the limit,
 2e-2, allows about five such flips at the largest value (an H100 reads up to
 8.7e-3 at these shapes) and fails an error of a few percent of the output.
+That bf16 limit is per 6 layers of the decode stack: flips add along the
+residual stream like a random walk, so 24 layers are held to sqrt(24 / 6) of
+it. Any phase that fails, or a kernel launched on no path, fails the run.
 """
 
 from __future__ import annotations
@@ -147,14 +159,14 @@ def write_tokenizer(path: Path, n_pieces: int) -> None:
     path.write_bytes(data)
 
 
-def write_config(tmp: Path, small: bool = False) -> Path:
-    """english.yaml with a local toy tokenizer (and, for `small`, the test
-    suite's small geometry)."""
+def write_config(tmp: Path, small: bool = False, name: str = "english") -> Path:
+    """A shipped config (english.yaml unless `name` says otherwise) with a
+    local toy tokenizer (and, for `small`, the test suite's small geometry)."""
     import yaml
 
     from pocket_tts_tpu_torch.config import CONFIGS_DIR
 
-    cfg = yaml.safe_load((CONFIGS_DIR / "english.yaml").read_text())
+    cfg = yaml.safe_load((CONFIGS_DIR / f"{name}.yaml").read_text())
     n_bins = cfg["flow_lm"]["lookup_table"]["n_bins"]
     tok = tmp / "tokenizer.model"
     if not tok.exists():
@@ -173,7 +185,7 @@ def write_config(tmp: Path, small: bool = False) -> Path:
         cfg["mimi"]["quantizer"].update(dimension=8, output_dimension=64)
         cfg["mimi"]["inner_dim"] = 8
         cfg["mimi"]["outer_dim"] = 64
-    path = tmp / ("small.yaml" if small else "english.yaml")
+    path = tmp / ("small.yaml" if small else f"{name}.yaml")
     path.write_text(yaml.safe_dump(cfg))
     return path
 
@@ -189,17 +201,25 @@ def check_decode_stack(report: dict) -> None:
     from pocket_tts_tpu_torch.ops import decode_stack as ds
     from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8
 
-    cfg = TransformerConfig(d_model=1024, num_heads=16, num_layers=6, dim_feedforward=4096)
-    L, D, H, F = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.dim_feedforward
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
-    cases = [("bfloat16", torch.bfloat16, False, ((256, 100), (512, 300))),
-             ("float32", torch.float32, False, ((256, 100), (512, 300))),
-             ("bfloat16", torch.bfloat16, True, ((256, 100),)),
-             ("float32", torch.float32, True, ((256, 100),))]
-    for dtype_name, dtype, quant, caches in cases:
-        tol = REL_TOL[dtype_name]
-        label = ("int8-" if quant else "") + dtype_name
+    # 6 layers (english.yaml) in every dtype; 24 layers (italian_24l and the
+    # other 24-layer configs) in the serving dtypes, bf16 and int8 rows
+    cases = [(6, "bfloat16", torch.bfloat16, False, ((256, 100), (512, 300))),
+             (6, "float32", torch.float32, False, ((256, 100), (512, 300))),
+             (6, "bfloat16", torch.bfloat16, True, ((256, 100),)),
+             (6, "float32", torch.float32, True, ((256, 100),)),
+             (24, "bfloat16", torch.bfloat16, False, ((256, 100),)),
+             (24, "bfloat16", torch.bfloat16, True, ((256, 100),))]
+    for n_layers, dtype_name, dtype, quant, caches in cases:
+        cfg = TransformerConfig(d_model=1024, num_heads=16, num_layers=n_layers,
+                                dim_feedforward=4096)
+        L, D, H, F = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.dim_feedforward
+        # the bf16 bar is per 6 layers: flips add along the residual stream
+        # like a random walk, so 24 layers get sqrt(24 / 6) = 2x of it
+        depth = max(1.0, L / 6) ** 0.5 if dtype_name == "bfloat16" else 1.0
+        tol = REL_TOL[dtype_name] * depth
+        label = ("24l-" if L == 24 else "") + ("int8-" if quant else "") + dtype_name
         g.manual_seed(1)
         params = init_layer_params(cfg, g, dtype, dev)
         if quant:  # attention_ffn: all four products int8, f32 row scales
@@ -250,14 +270,15 @@ def check_decode_stack(report: dict) -> None:
             nbytes = weights + L * valid * 2 * D * es + L * 2 * D * es + 2 * D * es + C * 4
             flops = L * (2 * (4 * D * D + 2 * F * D) + 4 * (valid + 1) * D)
             b_ms, b_by = bound(nbytes, flops, dtype_name)
-            if dtype_name == "bfloat16" and C == 256 and not quant:
+            if dtype_name == "bfloat16" and C == 256 and not quant and L == 6:
                 profile("decode_stack bf16 C=256 x20", lambda: [
                     ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset,
                                           n_filled) for _ in range(20)], top=6)
             print(f"decode_stack {label} C={C}: max_abs_err={err:.3g} rel={rel:.3g} "
                   f"row_err={row_err:.3g} row_rel={row_rel:.3g} rel_tol={tol} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s effective)")
             if rel > tol or row_rel > tol:
                 raise AssertionError(f"decode_stack {label} C={C}: max |kernel - plain| "
                                      f"/ max |plain| {rel:.3g} (row {row_rel:.3g}) > {tol}")
@@ -514,6 +535,53 @@ def check_gemv(report: dict) -> None:
                         bound_by=b_by, library_ms=lib_ms)
 
 
+# The rows gemv_stack is held at, and the rows whose times are kept.
+GEMV_STACK_ROWS = (1, 3, 8, 32, 48)
+GEMV_STACK_TIMED = (1, 32)
+
+
+def check_gemv_stack(report: dict) -> None:
+    """The stacked int8 GEMV against its plain version at the probe's full
+    size (48 stacked [4096, 1024] int8 halves of a 24-layer model's FFN);
+    int8 -128 and 127 in Wq (the probe's own draws stop at 126)."""
+    import torch
+
+    from pocket_tts_tpu_torch.ops import gemv_stack as gs
+    from pocket_tts_tpu_torch.tools.int8_gemv_probe import I, L, O
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    Wq = torch.randint(-128, 128, (L, O, I), generator=g, device="cuda", dtype=torch.int8)
+    Wq[0, :4, :16] = -128
+    Wq[-1, -4:, -16:] = 127
+    s = torch.rand((L, O), generator=g, device="cuda")
+    n_min, n_max = int((Wq == -128).sum().item()), int((Wq == 127).sum().item())
+    tol = REL_TOL["float32"]
+    for R in GEMV_STACK_ROWS:
+        x = torch.randn((R, I), generator=g, device="cuda").to(torch.bfloat16)
+        y_k = gs._gemv_stack_cuda(x, Wq, s)
+        y_p = gs.gemv_stack_plain(x, Wq, s)
+        torch.cuda.synchronize()
+        if y_k.shape != (L, R, O) or not torch.isfinite(y_k).all():
+            raise AssertionError(f"gemv_stack R={R}: bad output {tuple(y_k.shape)}")
+        err, rel = rel_err(y_k, y_p)
+        nbytes = L * O * I + 4 * L * O + 2 * R * I + 4 * L * R * O
+        b_ms, b_by = bound(nbytes, 2 * L * R * O * I, "bfloat16")
+        line = (f"gemv_stack L={L} O={O} I={I} R={R}: max_abs_err={err:.3g} rel={rel:.3g} "
+                f"rel_tol={tol} (Wq holds {n_min} x -128, {n_max} x 127)")
+        if R in GEMV_STACK_TIMED:
+            ms = cuda_ms(lambda: gs._gemv_stack_cuda(x, Wq, s))
+            plain_ms = cuda_ms(lambda: gs.gemv_stack_plain(x, Wq, s), iters=5)
+            line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none "
+                     f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB, "
+                     f"{nbytes / ms / 1e6:.0f} GB/s effective)")
+            report[("gemv_stack", R)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(line)
+        if rel > tol:
+            raise AssertionError(f"gemv_stack R={R}: max |kernel - plain| / max |plain| "
+                                 f"{rel:.3g} > {tol}")
+
+
 # ------------------------------------------------------------ pipeline phases
 
 
@@ -602,10 +670,10 @@ def profile(label: str, fn, top: int = 8) -> None:
 
 
 def kernel_modules() -> dict:
-    from pocket_tts_tpu_torch.ops import codec_decode, decode_stack, flash_decode, gemv
+    from pocket_tts_tpu_torch.ops import codec_decode, decode_stack, flash_decode, gemv, gemv_stack
 
     return {"decode_stack": decode_stack, "codec_decode": codec_decode,
-            "flash_decode": flash_decode, "gemv": gemv}
+            "flash_decode": flash_decode, "gemv": gemv, "gemv_stack": gemv_stack}
 
 
 def reset_counts() -> None:
@@ -724,10 +792,56 @@ def check_route(label: str, counts: dict, steps: int, L: int, b1: bool, skinny: 
                              "32 rows")
 
 
-def run_main_path(tmp: Path):
-    """The b1 bf16 path: 3 requests and one streamed request."""
+MAIN_TEXTS = ["hello world. this is a test of the tts.",
+              "the card runs fast and small speech.",
+              "this is a test. hello world, this is the speech of the card."]
+
+
+def run_b1(model, voice, label: str, texts: list[str], seeds: list[int],
+           stream_seed: int | None = None) -> dict:
+    """b1 generate_audio requests on `model` (and one streamed request when
+    `stream_seed` is given): counters set to 0 just before and read just
+    after, the route's launches, finite audio and a bit-unchanged voice state
+    checked, audio-s/s printed beside the card's name and power limit."""
     import numpy as np
 
+    before = voice.clone()
+    reset_counts()
+    model.decode_steps = 0
+    total_audio, total_wall = 0.0, 0.0
+    for i, (text, seed) in enumerate(zip(texts, seeds)):
+        t0 = time.perf_counter()
+        audio = model.generate_audio(voice, text, seed=seed)
+        wall = time.perf_counter() - t0
+        if audio.size == 0 or audio.size % model.samples_per_frame or not np.isfinite(audio).all():
+            raise AssertionError(f"{label} request {i}: bad audio ({audio.size} samples)")
+        secs = audio.size / model.sample_rate
+        total_audio += secs
+        total_wall += wall
+        print(f"{label} request {i}: {secs:.2f} s of audio in {wall:.3f} s "
+              f"({secs / wall:.2f} audio-s/s)")
+    first = ""
+    if stream_seed is not None:
+        t0 = time.perf_counter()
+        stream = model.generate_audio_stream(voice, texts[0], seed=stream_seed)
+        chunk = next(stream)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        rest = sum(c.size for c in stream) + chunk.size
+        print(f"{label} streamed request: first chunk {chunk.size} samples in {first_ms:.2f} ms, "
+              f"{rest} samples in all")
+        first = f"; first chunk {first_ms:.2f} ms"
+    counts, steps = read_counts(), model.decode_steps
+    check_route(label, counts, steps, model.specs.transformer.num_layers, b1=True, skinny=True)
+    if not same_state(voice, before):
+        raise AssertionError(f"{label}: a copy_state=True request changed the voice state")
+    print(f"{label}: {len(texts)} requests, {total_audio:.2f} s of audio in {total_wall:.3f} s: "
+          f"{total_audio / total_wall:.2f} audio-s/s ({steps} decode steps, launches {counts})"
+          f"{first} [{card_line()}]")
+    return counts
+
+
+def run_main_path(tmp: Path):
+    """The b1 bf16 path: 3 requests and one streamed request."""
     from pocket_tts_tpu_torch.pipeline.tts import TTSModel
 
     cfg = write_config(tmp)
@@ -736,43 +850,10 @@ def run_main_path(tmp: Path):
     model = TTSModel.load_model(config=cfg, allow_random_init=True, param_dtype="bfloat16",
                                 eos_threshold=1e9)
     voice = make_voice(model, tmp, "voice-bf16")
-    before = voice.clone()
-
-    texts = ["hello world. this is a test of the tts.",
-             "the card runs fast and small speech.",
-             "this is a test. hello world, this is the speech of the card."]
-    reset_counts()
-    model.decode_steps = 0
-    total_audio, total_wall = 0.0, 0.0
-    for i, text in enumerate(texts):
-        t0 = time.perf_counter()
-        audio = model.generate_audio(voice, text, seed=i + 1)
-        wall = time.perf_counter() - t0
-        if audio.size == 0 or audio.size % model.samples_per_frame or not np.isfinite(audio).all():
-            raise AssertionError(f"request {i}: bad audio ({audio.size} samples)")
-        secs = audio.size / model.sample_rate
-        total_audio += secs
-        total_wall += wall
-        print(f"request {i}: {secs:.2f} s of audio in {wall:.3f} s ({secs / wall:.2f} audio-s/s)")
-    t0 = time.perf_counter()
-    stream = model.generate_audio_stream(voice, texts[0], seed=9)
-    first = next(stream)
-    first_ms = (time.perf_counter() - t0) * 1e3
-    rest = sum(c.size for c in stream) + first.size
-    print(f"streamed request: first chunk {first.size} samples in {first_ms:.2f} ms, "
-          f"{rest} samples in all")
-    launches, steps = read_counts(), model.decode_steps
-    print(f"launches: {launches}, decode steps: {steps}")
-    check_route("b1 bf16", launches, steps, model.specs.transformer.num_layers, b1=True,
-                skinny=True)
-    if not same_state(voice, before):
-        raise AssertionError("a copy_state=True request changed the voice state")
-    print(f"main path b1 bf16: {total_audio:.2f} s of audio in {total_wall:.3f} s: "
-          f"{total_audio / total_wall:.2f} audio-s/s; first chunk {first_ms:.2f} ms "
-          f"[{card_line()}]")
+    launches = run_b1(model, voice, "main path b1 bf16", MAIN_TEXTS, [1, 2, 3], stream_seed=9)
     # enough rows for every decode-stack and codec kernel
-    profile("one generate_audio request", lambda: model.generate_audio(voice, texts[1], seed=4),
-            top=16)
+    profile("one generate_audio request",
+            lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=4), top=16)
     return model, voice, launches
 
 
@@ -822,8 +903,6 @@ def run_batch(model, voice, B: int, label: str, seed: int, profile_it: bool = Fa
 
 def run_batched_paths(tmp: Path, model, voice) -> dict:
     """B=32 bf16, B=128 bf16, then the int8 model: B=32 and b1."""
-    import numpy as np
-
     from pocket_tts_tpu_torch.pipeline.tts import TTSModel
 
     paths = {"b32 bf16": run_batch(model, voice, 32, "b32 bf16", 100, profile_it=True),
@@ -833,26 +912,61 @@ def run_batched_paths(tmp: Path, model, voice) -> dict:
                                   quantize_config="attention_ffn")
     q_voice = make_voice(q_model, tmp, "voice-int8")
     paths["b32 int8"] = run_batch(q_model, q_voice, 32, "b32 int8", 300, profile_it=True)
-    before = q_voice.clone()
-    reset_counts()
-    q_model.decode_steps = 0
-    t0 = time.perf_counter()
-    audio = [q_model.generate_audio(q_voice, t, seed=400 + i)
-             for i, t in enumerate(BATCH_TEXTS[:2])]
-    wall = time.perf_counter() - t0
-    counts, steps = read_counts(), q_model.decode_steps
-    if any(a.size == 0 or a.size % q_model.samples_per_frame or not np.isfinite(a).all()
-           for a in audio):
-        raise AssertionError(f"b1 int8: bad audio {[a.size for a in audio]}")
-    check_route("b1 int8", counts, steps, q_model.specs.transformer.num_layers, b1=True,
-                skinny=True)
-    if not same_state(q_voice, before):
-        raise AssertionError("b1 int8: a copy_state=True request changed the voice state")
-    secs = sum(a.size for a in audio) / q_model.sample_rate
-    print(f"b1 int8: 2 requests, {secs:.2f} s of audio in {wall:.3f} s: {secs / wall:.2f} "
-          f"audio-s/s ({steps} decode steps, launches {counts}) [{card_line()}]")
-    paths["b1 int8"] = counts
+    paths["b1 int8"] = run_b1(q_model, q_voice, "b1 int8", BATCH_TEXTS[:2], [400, 401])
     return paths
+
+
+def run_24l_paths(tmp: Path) -> dict:
+    """italian_24l (a 24-layer FlowLM; the other 24-layer configs differ only
+    in their weights) at b1: bf16 (2 requests and one streamed) and int8
+    attention_ffn (2 requests)."""
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    cfg = write_config(tmp, name="italian_24l")
+    paths = {}
+    for label, quant in (("24l b1 bf16", None), ("24l b1 int8", "attention_ffn")):
+        model = TTSModel.load_model(config=cfg, allow_random_init=True, param_dtype="bfloat16",
+                                    eos_threshold=1e9, quantize_config=quant)
+        if model.specs.transformer.num_layers != 24:
+            raise AssertionError(f"{label}: {model.specs.transformer.num_layers} layers")
+        voice = make_voice(model, tmp, label.replace(" ", "-"))
+        paths[label] = run_b1(model, voice, label, MAIN_TEXTS[:2], [500, 501],
+                              stream_seed=None if quant else 509)
+        if quant is None:  # where a 24-layer request and its first chunk spend their time
+            profile(f"one {label} request",
+                    lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=502), top=12)
+            profile(f"{label} first chunk",
+                    lambda: next(model.generate_audio_stream(voice, MAIN_TEXTS[0], seed=503)),
+                    top=12)
+    return paths
+
+
+# The probe's chain target: long enough that the slope's two walls dwarf the
+# host's jitter, short enough for the smoke (the probe's own default is 2 s).
+PROBE_TARGET_S = 0.15
+
+
+def run_probe_phase() -> dict:
+    """python -m pocket_tts_tpu_torch.tools.int8_gemv_probe's four variants
+    at full size, rows 1 and 32, with the short chain target."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pocket_tts_tpu_torch.tools import int8_gemv_probe as probe
+
+    reset_counts()
+    for rows in (1, 32):
+        for r in probe.run_probe(rows, torch.device("cuda"), np.random.default_rng(0),
+                                 target_s=PROBE_TARGET_S):
+            if not (math.isfinite(r["ms"]) and r["ms"] > 0):
+                raise AssertionError(f"probe rows={rows} {r['label']}: time {r['ms']} ms")
+    counts = read_counts()
+    print(f"probe: launches {counts} [{card_line()}]")
+    if counts["gemv_stack"] == 0 or any(n for k, n in counts.items() if k != "gemv_stack"):
+        raise AssertionError(f"probe: launches {counts} (want gemv_stack only)")
+    return counts
 
 
 KERNEL_ROWS = {  # name -> (source, TPU kernel replaced, report key of the line's numbers)
@@ -867,6 +981,8 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel replaced, report key of the line'
                      ("flash_decode", "bfloat16", 32, 256)),
     "gemv": ("pocket_tts_tpu_torch/csrc/gemv.cu", "pocket_tts_tpu/ops/gemv.py:73",
              ("gemv", "bfloat16", "w1", 32)),
+    "gemv_stack": ("pocket_tts_tpu_torch/csrc/gemv_stack.cu", "tools/int8_gemv_probe.py:143",
+                   ("gemv_stack", 1)),
 }
 
 
@@ -877,6 +993,7 @@ def main() -> int:
         return fail("torch is not installed")
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
@@ -900,23 +1017,33 @@ def main() -> int:
         check_codec(report)
         check_flash_decode(report)
         check_gemv(report)
+        check_gemv_stack(report)
+        print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
         with tempfile.TemporaryDirectory() as d:
             check_reference(Path(d))
             check_reference_batch(Path(d))
             model, voice, b1 = run_main_path(Path(d))
             paths = {"b1 bf16": b1, **run_batched_paths(Path(d), model, voice)}
+            del model, voice
+            print(f"6-layer paths done at {time.perf_counter() - t_start:.1f} s")
+            paths.update(run_24l_paths(Path(d)))
+            print(f"24-layer paths done at {time.perf_counter() - t_start:.1f} s")
+        paths["probe"] = run_probe_phase()
+        kernels = []
+        for name, (source, replaces, key) in KERNEL_ROWS.items():
+            by_path = {p: counts[name] for p, counts in paths.items()}
+            if not sum(by_path.values()):
+                raise AssertionError(f"{name} was launched on no path: {by_path}")
+            kernels.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": sum(by_path.values()),
+                            "library_ms": None, **report[key], "launches_by_path": by_path})
     except Exception as e:  # any failed phase fails the run
         import traceback
 
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
-    kernels = []
-    for name, (source, replaces, key) in KERNEL_ROWS.items():
-        by_path = {p: counts[name] for p, counts in paths.items()}
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": sum(by_path.values()), "library_ms": None, **report[key],
-                        "launches_by_path": by_path})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{card_line()}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

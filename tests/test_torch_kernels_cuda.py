@@ -20,16 +20,26 @@ from pocket_tts_tpu_torch.ops import codec_decode as cd
 from pocket_tts_tpu_torch.ops import decode_stack as ds
 from pocket_tts_tpu_torch.ops import flash_decode as fd
 from pocket_tts_tpu_torch.ops import gemv as gv
+from pocket_tts_tpu_torch.ops import gemv_stack as gs
 from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8, quantize_weight
 
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def assert_close_rel(got, ref, dtype):
+def assert_close_rel(got, ref, dtype, depth_scale=1.0):
     got, ref = got.float(), ref.float()
     err = (got - ref).abs().max().item()
-    limit = REL_TOL[dtype] * ref.abs().max().item()
+    limit = REL_TOL[dtype] * depth_scale * ref.abs().max().item()
     assert err <= limit, f"max |kernel - plain| {err:.3g} > {limit:.3g}"
+
+
+def stack_depth_scale(dtype, num_layers):
+    """The bf16 bar is per 6 layers (the flagship's depth): roundings flipped
+    by the summation order in each layer add along the residual stream like
+    a random walk, so a deeper stack gets sqrt(L / 6) of it (24 layers: 2x;
+    an H100 reads up to 2.0e-2 there against 8.7e-3 at 6). f32 differences
+    stay near 1e-7 at any depth."""
+    return max(1.0, num_layers / 6) ** 0.5 if dtype == torch.bfloat16 else 1.0
 
 
 @pytest.fixture
@@ -57,7 +67,8 @@ def leaves(tree):
 @pytest.mark.parametrize("geom,C,offset", [
     (dict(d_model=64, num_heads=4, num_layers=2, dim_feedforward=128), 32, 10),
     (dict(d_model=1024, num_heads=16, num_layers=6, dim_feedforward=4096), 256, 100),
-], ids=["small", "flagship"])
+    (dict(d_model=1024, num_heads=16, num_layers=24, dim_feedforward=4096), 256, 100),
+], ids=["small", "flagship", "flagship-24l"])
 @pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
 def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset, quant):
     """A mid-generation cache (a dead slot, 7 speculative slots past the
@@ -79,9 +90,10 @@ def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset, quant):
     kk, vk, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
     h_k = ds._decode_stack_cuda(cfg, params, x, kk, vk, pos, off, wp)
     h_p = ds.decode_stack_plain(cfg, params, x, kp, vp, pos, off, wp)
-    assert_close_rel(h_k, h_p, dtype)
-    assert_close_rel(kk[:, :, wp], kp[:, :, wp], dtype)
-    assert_close_rel(vk[:, :, wp], vp[:, :, wp], dtype)
+    scale = stack_depth_scale(dtype, L)
+    assert_close_rel(h_k, h_p, dtype, scale)
+    assert_close_rel(kk[:, :, wp], kp[:, :, wp], dtype, scale)
+    assert_close_rel(vk[:, :, wp], vp[:, :, wp], dtype, scale)
     others = torch.arange(C, device="cuda") != wp
     assert torch.equal(kk[:, :, others], k[:, :, others])
     assert torch.equal(vk[:, :, others], v[:, :, others])
@@ -112,6 +124,38 @@ def test_gemv_kernel_matches_plain(card, kind, R, O, I):
     y_p = gv.gemv_plain(x, w)
     assert y_k.dtype == y_p.dtype and y_k.shape == (R, O)
     assert_close_rel(y_k, y_p, y_p.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 8, 32, 48])
+@pytest.mark.parametrize("L,O,I", [(48, 4096, 1024), (3, 200, 784)], ids=["probe", "ragged"])
+def test_gemv_stack_kernel_matches_plain(card, R, L, O, I):
+    """The probe's stacked int8 weight, and an O that fills no block and an I
+    that fills no 512-column tile; int8 -128 and 127 included; more than 32
+    rows take two row groups. f32 sums of exact products: 1e-4."""
+    x = torch.randn((R, I), generator=card, device="cuda").to(torch.bfloat16)
+    Wq = torch.randint(-128, 128, (L, O, I), generator=card, device="cuda", dtype=torch.int8)
+    Wq[0, :2, :3] = -128
+    Wq[-1, -1, -5:] = 127
+    s = torch.rand((L, O), generator=card, device="cuda")
+    before = gs.KERNEL.launches
+    y_k = gs.gemv_stack(x, Wq, s)
+    assert gs.KERNEL.launches == before + 1
+    y_p = gs.gemv_stack_plain(x, Wq, s)
+    assert y_k.dtype == torch.float32 and y_k.shape == (L, R, O)
+    assert_close_rel(y_k, y_p, torch.float32)
+
+
+@pytest.mark.cuda
+def test_gemv_stack_kernel_raises_on_misaligned_or_foreign_inputs(card):
+    x = torch.zeros((2, 64), dtype=torch.bfloat16, device="cuda")
+    Wq = torch.zeros((2, 32, 64), dtype=torch.int8, device="cuda")
+    s = torch.zeros((2, 32), device="cuda")
+    shifted = torch.zeros(2 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        gs.gemv_stack(shifted, Wq, s)
+    with pytest.raises(ValueError, match="is on"):
+        gs.gemv_stack(x, Wq, s.cpu())
 
 
 def flash_case(g, B, C, H, Dh, dtype, att):

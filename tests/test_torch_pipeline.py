@@ -275,3 +275,79 @@ def test_batch_states_stacks_rows_like_jax(batch_voices):
     for name in ("k", "v", "pos", "offset"):
         np.testing.assert_array_equal(host(getattr(got, name)), host(getattr(ref, name)))
     assert got.write_pos == int(ref.write_pos)
+
+
+# The 24-layer configs (french_24l, german_24l, italian_24l, portuguese_24l,
+# spanish_24l) differ from their 6-layer siblings only in the FlowLM depth.
+@pytest.fixture(scope="module")
+def models24(models, tmp_path_factory):
+    """The small model with a 24-layer FlowLM (jitted JAX init, seed 24) and
+    the small model's Mimi."""
+    import jax
+
+    from pocket_tts_tpu.config import Config as JaxConfig
+    from pocket_tts_tpu.models.flow_lm import build_flow_lm_specs as jax_flow_specs
+    from pocket_tts_tpu.models.flow_lm import init_flow_lm_params
+    from small_model import small_config
+
+    small = models[0]
+    d = small_config().model_dump()
+    d["flow_lm"]["transformer"]["num_layers"] = 24
+    jcfg = JaxConfig(**d)
+    specs = jax_flow_specs(jcfg)
+    params = jax.jit(init_flow_lm_params, static_argnums=0)(specs, jax.random.PRNGKey(24))
+    jm = jtts.TTSModel(specs, small.mimi_specs, params, small.mimi_params,
+                       tokenizer=small.tokenizer, config=jcfg,
+                       gen_params=jtts.GenerationParams(), origin=None)
+    cfg = PortConfig(**d)
+    pm = ptts.TTSModel(build_flow_lm_specs(cfg), build_mimi_specs(cfg.mimi), port(jm.params),
+                       port(jm.mimi_params), jm.tokenizer, cfg, ptts.GenerationParams(),
+                       torch.device("cpu"))
+    assert pm.specs.transformer.num_layers == 24
+    # the voice: one JAX prompt pass over seeded backbone-space conditioning
+    # (as test_state_for_conditioning_matches_jax), exported for both sides
+    import jax.numpy as jnp
+
+    from pocket_tts_tpu.models.flow_lm import init_flow_lm_state, prompt_step
+
+    D = specs.transformer.d_model
+    cond = np.random.default_rng(8).standard_normal((1, 12, D)).astype(np.float32)
+    full = jnp.concatenate([jm.params["bos_before_voice"], jnp.asarray(cond)], axis=1)
+    padded = jnp.pad(full, ((0, 0), (0, 16 - 13), (0, 0)))
+    voice = prompt_step(specs, jm.params, init_flow_lm_state(specs, 1, 256), padded,
+                        true_len=jnp.asarray([13], jnp.int32))
+    voice_file = tmp_path_factory.mktemp("voice24") / "voice.safetensors"
+    export_model_state(voice, voice_file)
+    return jm, pm, voice_file
+
+
+@pytest.mark.parametrize("quantize", [None, "attention_ffn"], ids=["f32", "int8"])
+def test_generate_audio_24_layers_matches_jax(models24, monkeypatch, quantize):
+    """A short b1 request on a 24-layer FlowLM (the small width), f32 and
+    int8 attention_ffn weights (the decode-stack op's int8 rows): waveform
+    at 1e-3, equal EOS steps and length, the voice state untouched."""
+    from pocket_tts_tpu import quant as jq
+    from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8
+
+    jm, pm, voice_file = models24
+    jparams, pparams = jm.params, pm.params
+    if quantize:
+        jm.params = jq.quantize_flow_lm_int8(jparams, quantize)
+        pm.params = quantize_flow_lm_int8(pparams, quantize)
+    try:
+        jm.gen = jtts.GenerationParams(eos_threshold=-4.0)
+        pm.gen = ptts.GenerationParams(eos_threshold=-4.0)
+        seen = eos_steps(monkeypatch)
+        ldim, temp = jm.specs.ldim, jm.gen.temp
+        voice_p = port_import(voice_file, device="cpu")
+        before = voice_p.clone()
+        ref = jm.generate_audio(import_model_state(voice_file), TEXT,
+                                noise_source=frame_noise(200, ldim, temp, seed=24))
+        got = pm.generate_audio(voice_p, TEXT, noise_source=frame_noise(200, ldim, temp, seed=24))
+    finally:
+        jm.params, pm.params = jparams, pparams
+    assert got.shape == ref.shape and got.size > 0
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-3, atol=1e-3)
+    assert seen["port"] == seen["jax"]
+    for name in ("k", "v", "pos", "offset"):
+        assert torch.equal(getattr(voice_p, name), getattr(before, name))
