@@ -19,9 +19,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      slots past the offset and one all-dead row; gemv at 1, 8 and 32 rows for
      every product the paths send it (GEMV_GROUPS): the FlowLM's four, plain
      and int8, the flow head's as f32 activations over bf16 weights, and the
-     Mimi decoder transformer's four; gemv_stack at the int8 GEMV probe's
-     size (48 x [4096, 1024] int8, -128 and 127 included) at 1, 3, 8, 32 and
-     48 rows;
+     Mimi decoder transformer's four, the kernel and torch.matmul timed as
+     device time by CUDA-graph replay (graph_ms), over weights cold in L2 and
+     warm (the other kernels' times are host-launched CUDA-event loops,
+     cuda_ms, which read the launch rate below ~0.04 ms); gemv_stack at the
+     int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
+     at 1, 3, 8, 32 and 48 rows;
   4. reference: a small f32 model's generate_audio (B=1) and
      generate_audio_batch (B=4, ragged voices and prompts) on the card
      (kernels, gemv included: the small FlowLM is 128 wide) against the same
@@ -93,6 +96,41 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, n: int = 40, reps: int = 7) -> float:
+    """Device ms per call: n calls (cycling over `fns`) captured in one CUDA
+    graph and replayed between CUDA events, the median of `reps` replays. No
+    host launch cost is in it, unlike cuda_ms, whose loop of launches reads
+    the host's launch rate below ~0.04 ms."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[reps // 2]
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -484,7 +522,16 @@ def gemv_label(x_name: str, w_name: str, quant: bool) -> str:
                                          else f"{x_name}-over-{w_name}")
 
 
+# Bytes of weight copies the gemv timing cycles through, twice the 50 MB L2,
+# so that each timed call finds its weights in HBM, as the serving paths'
+# FlowLM products do (6 layers of bf16 weights are 151 MB).
+GEMV_COLD_BYTES = 100e6
+
+
 def check_gemv(report: dict) -> None:
+    """Each gemv product against its plain version; the kernel and the
+    torch.matmul yardstick timed as device time (graph_ms), over weights cold
+    in L2 (kernel_ms, library_ms) and warm (the same weight each call)."""
     import torch
 
     from pocket_tts_tpu_torch.ops import gemv as gv
@@ -500,8 +547,12 @@ def check_gemv(report: dict) -> None:
             tol = REL_TOL[x_name]
             label = gemv_label(x_name, w_name, quant)
             for name, (O, I) in shapes.items():
-                W = (torch.randn((O, I), generator=g, device="cuda") / I ** 0.5).to(wdt)
-                w = quantize_weight(W) if quant else W
+                ws_ = torch.finfo(wdt).bits // 8
+                w_bytes = O * I * (1 if quant else ws_)
+                Ws = [(torch.randn((O, I), generator=g, device="cuda") / I ** 0.5).to(wdt)
+                      for _ in range(int(GEMV_COLD_BYTES // w_bytes) + 1)]
+                wq = [quantize_weight(W) for W in Ws] if quant else Ws
+                W, w = Ws[0], wq[0]
                 for R in (1, 8, 32):
                     x = torch.randn((R, I), generator=g, device="cuda").to(xdt)
                     y_k = gv._gemv_cuda(x, w)
@@ -511,28 +562,32 @@ def check_gemv(report: dict) -> None:
                             or not torch.isfinite(y_k.float()).all()):
                         raise AssertionError(f"gemv {label} {name} R={R}: bad output")
                     err, rel = rel_err(y_k, y_p)
-                    ms = cuda_ms(lambda: gv._gemv_cuda(x, w))
-                    plain_ms = cuda_ms(lambda: gv.gemv_plain(x, w))
+                    ms = graph_ms([lambda w=w: gv._gemv_cuda(x, w) for w in wq])
+                    warm_ms = graph_ms([lambda: gv._gemv_cuda(x, w)])
+                    plain_ms = cuda_ms(lambda: gv.gemv_plain(x, w))  # host-launched loop
                     # library: one torch.matmul for plain weights of x's
                     # dtype; no single call fuses the int8 dequant or takes
                     # f32 activations over bf16 weights
-                    lib_ms = (cuda_ms(lambda: torch.matmul(x, W.T))
-                              if not quant and xdt == wdt else None)
-                    xs, ws = torch.finfo(xdt).bits // 8, torch.finfo(wdt).bits // 8
-                    nbytes = (O * I * (1 if quant else ws) + (4 * O if quant else 0)
-                              + R * I * xs + R * O * xs)
+                    lib_ms = lib_warm = None
+                    if not quant and xdt == wdt:
+                        lib_ms = graph_ms([lambda W=W: torch.matmul(x, W.T) for W in Ws])
+                        lib_warm = graph_ms([lambda: torch.matmul(x, W.T)])
+                    xs = torch.finfo(xdt).bits // 8
+                    nbytes = w_bytes + (4 * O if quant else 0) + R * I * xs + R * O * xs
                     b_ms, b_by = bound(nbytes, 2 * R * O * I, x_name)
-                    lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+                    lib = ("none" if lib_ms is None
+                           else f"{lib_ms:.4f} (warm {lib_warm:.4f})")
                     print(f"gemv {label} {name} {O}x{I} R={R}: max_abs_err={err:.3g} "
-                          f"rel={rel:.3g} rel_tol={tol} kernel_ms={ms:.4f} "
-                          f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={b_ms:.4f} "
-                          f"({b_by}, {nbytes / 1e6:.2f} MB)")
+                          f"rel={rel:.3g} rel_tol={tol} kernel_ms={ms:.4f} (warm {warm_ms:.4f}) "
+                          f"library_ms={lib} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+                          f"({b_by}, {nbytes / 1e6:.2f} MB) bound_share={b_ms / ms:.2f}")
                     if rel > tol:
                         raise AssertionError(f"gemv {label} {name} R={R}: max |kernel - plain| "
                                              f"/ max |plain| {rel:.3g} > {tol}")
                     report[("gemv", label, name, R)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
+                del Ws, wq
 
 
 # The rows gemv_stack is held at, and the rows whose times are kept.

@@ -17,8 +17,10 @@ weights, as in the flow head, computes in f32); int8 weights are widened to
 x's dtype, the sum is rounded to x's dtype, then multiplied by the f32
 per-row scale and rounded again. The TPU kernel scaled the f32 sum instead.
 
-Bound on the H100: bytes, the weight read once (plus x and y) at 3.35 TB/s;
-see the source for the design.
+Bound on the H100: bytes, the weight read once (plus x and y) at 3.35 TB/s.
+The kernel runs bf16 and int8 weights on the tensor cores (`mma.sync`, the
+weights as operand A; f32 activations as three bf16 terms), and f32 x f32
+and one-row f32 activations on CUDA cores; see the source for the design.
 """
 
 from __future__ import annotations
@@ -93,6 +95,8 @@ def _gemv_cuda(x: torch.Tensor, w) -> torch.Tensor:
         raise ValueError(f"gemv: x {tuple(x.shape)} against W {tuple(W.shape)}")
     if W.data_ptr() % 16 or (I * W.element_size()) % 16:
         raise ValueError("gemv: weight rows must be 16-byte aligned")
+    if x.data_ptr() % 16:  # a view at an odd offset: the kernel reads x in 16 bytes
+        x = x.clone()
     lib = KERNEL.load()
     y = torch.empty((R, O), dtype=out_dtype(x, w), device=x.device)
     err = lib.gemv_run(_XDT[x.dtype], _WDT[W.dtype], R, O, I, x.data_ptr(), W.data_ptr(),

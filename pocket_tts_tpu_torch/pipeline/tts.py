@@ -14,6 +14,15 @@ frames after the first EOS, the frames-after-EOS allowance and the break
 step. The JAX package overlaps those copies with later dispatches on a
 background thread (`_FetchPipe`); here each block is copied when it is done.
 
+A deliberate difference follows: with EOS on, the JAX package keeps
+dispatching speculative blocks until its fetch thread resolves the EOS
+block, so how many frames it asks of a `noise_source` depends on when its
+fetches complete; the port stops at the first block that shows EOS. A
+shared sequential source therefore feeds a later chunk other noise on the
+two sides. The emitted frames and offsets agree wherever the noise is keyed
+by (chunk, frame); the speculative slots (masked) move the JAX package's
+slot watermark past the port's.
+
 Batched generation (`generate_audio_batch`) runs B utterances as the rows of
 one state: one prompt pass over right-padded token rows with per-row true
 lengths, then the same block ramp for all rows (the FlowLM step on the

@@ -110,11 +110,15 @@ GEMV_KINDS = {  # x dtype, weight dtype, int8 (quantized from weights of that dt
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(GEMV_KINDS))
-@pytest.mark.parametrize("R", [1, 3, 8, 16, 32])
-@pytest.mark.parametrize("O,I", [(3072, 1024), (1024, 4096), (512, 256)])
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 17, 24, 32])
+@pytest.mark.parametrize("O,I", [(3072, 1024), (1024, 4096), (512, 256), (1536, 512),
+                                 (512, 2048), (1024, 1024)])
 def test_gemv_kernel_matches_plain(card, kind, R, O, I):
-    """Every activation/weight pairing of the route, at 1-32 rows, for the
-    FlowLM's in_proj and w2 shapes and a flow-head shape."""
+    """Every activation/weight pairing of the route, at 1-32 rows (17 and 24:
+    the text prompt's), for the FlowLM's in_proj, w2 and out_proj shapes (w2
+    and out_proj: 64 tiles of 16 rows, split K over 16 warps), the Mimi
+    transformer's in_proj and w2, and the flow head's time embedding (512 x
+    256: fewer k slabs than a block has warps, so the split K shrinks)."""
     xdt, wdt, quant = GEMV_KINDS[kind]
     x = torch.randn((R, I), generator=card, device="cuda").to(xdt)
     w = (torch.randn((O, I), generator=card, device="cuda") / I ** 0.5).to(wdt)

@@ -51,13 +51,14 @@ def frame_noise(n_frames: int, ldim: int, temp: float, seed: int = 0):
 
 
 def eos_steps(monkeypatch):
-    """Record each side's EOS step at the end of every chunk."""
+    """Record each side's (emitted frames, EOS step) at the end of every
+    chunk."""
     seen = {"jax": [], "port": []}
     for name, mod in (("jax", jtts), ("port", ptts)):
         orig = mod._ChunkEmit.finish
 
         def finish(self, orig=orig, name=name):
-            seen[name].append(self.eos_step)
+            seen[name].append((self.emitted, self.eos_step))
             return orig(self)
 
         monkeypatch.setattr(mod._ChunkEmit, "finish", finish)
@@ -351,3 +352,115 @@ def test_generate_audio_24_layers_matches_jax(models24, monkeypatch, quantize):
     assert seen["port"] == seen["jax"]
     for name in ("k", "v", "pos", "offset"):
         assert torch.equal(getattr(voice_p, name), getattr(before, name))
+
+
+# Multi-chunk text: four sentences that split_into_best_sentences cuts into
+# four chunks at max_tokens=6 (each sentence is 4-5 tokens with its period),
+# through a toy tokenizer that keeps punctuation as tokens of its own, so the
+# splitter finds the sentence ends. Every chunk after the first is a warm
+# start (32-frame blocks at once).
+MULTI_TEXT = "Hello world. This is a test. The card runs fast. Small speech is here."
+MULTI_MAX_TOKENS = 6
+PUNCT_VOCAB = [".", "!", "?", ",", ";", ":", "hello", "world", "this", "is", "a", "test",
+               "the", "card", "runs", "fast", "small", "speech", "here"]
+
+
+class PunctTokenizer:
+    """Words and punctuation marks as tokens from a fixed vocabulary; id 0
+    leads every encoding, as a SentencePiece dummy prefix would."""
+
+    def __init__(self):
+        self.ids = {p: i + 1 for i, p in enumerate(PUNCT_VOCAB)}
+
+    def encode(self, text):
+        import re
+
+        return [0] + [self.ids[p] for p in re.findall(r"\w+|[^\w\s]", text.lower())]
+
+    def decode(self, ids):
+        out = ""
+        for i in ids:
+            if i == 0:
+                continue
+            p = PUNCT_VOCAB[i - 1]
+            out += p if p in ".!?,;:" or not out else " " + p
+        return out
+
+
+def chunk_keyed_noise(monkeypatch, ldim, temp):
+    """Hand chunk i of each side a fresh frame_noise(seed=100 + i): frame j
+    of chunk i then gets the same noise however many frames either side
+    draws. Wraps each side's per-chunk function (the JAX package's
+    _dispatch_chunk, the port's _generate_chunk) without editing either."""
+    for mod, name in ((jtts, "_dispatch_chunk"), (ptts, "_generate_chunk")):
+        orig = getattr(mod.TTSModel, name)
+        count = iter(range(1000))
+
+        def wrapped(self, model_state, spec, noise_source, *rest, orig=orig, count=count, **kw):
+            source = frame_noise(600, ldim, temp, seed=100 + next(count))
+            return orig(self, model_state, spec, source, *rest, **kw)
+
+        monkeypatch.setattr(mod.TTSModel, name, wrapped)
+
+
+@pytest.mark.parametrize("copy_state", [True, False], ids=["copy", "continue"])
+@pytest.mark.parametrize("eos", [False, True], ids=["no-eos", "eos"])
+def test_multi_chunk_generate_audio_matches_jax(models, monkeypatch, eos, copy_state):
+    """A four-chunk text, both copy_state modes, f32 at 1e-3 over the whole
+    request: equal chunk count and per-chunk emission, equal audio and final
+    offset. EOS off: one shared sequential noise stream. EOS on (threshold
+    -4): the JAX package keeps dispatching speculative blocks while its fetch
+    thread resolves EOS, so it draws more frames from a shared stream than
+    the port (which stops at the first block that shows EOS) in a count set
+    by timing; noise keyed by (chunk, frame) takes the draw count out. With
+    copy_state=False the slot watermark then differs: the JAX package's
+    state holds the port's valid positions with the same keys and values,
+    and its extra slots below its watermark are all masked (pos = -1)."""
+    jm, pm, voice_file = models
+    tok = PunctTokenizer()
+    threshold = -4.0 if eos else 1e9
+    monkeypatch.setattr(jm, "tokenizer", tok)
+    monkeypatch.setattr(pm, "tokenizer", tok)
+    monkeypatch.setattr(jm, "gen", jtts.GenerationParams(eos_threshold=threshold))
+    monkeypatch.setattr(pm, "gen", ptts.GenerationParams(eos_threshold=threshold))
+    ldim, temp = jm.specs.ldim, jm.gen.temp
+    chunks = ptts.split_into_best_sentences(tok, MULTI_TEXT, MULTI_MAX_TOKENS,
+                                            pm.pad_with_spaces_for_short_inputs,
+                                            pm.remove_semicolons)
+    assert len(chunks) == 4
+    seen = eos_steps(monkeypatch)
+    if eos:
+        chunk_keyed_noise(monkeypatch, ldim, temp)
+        j_src = p_src = None
+    else:
+        j_src, p_src = frame_noise(600, ldim, temp), frame_noise(600, ldim, temp)
+    js = import_model_state(voice_file)
+    ps = port_import(voice_file, device="cpu")
+    ref = jm.generate_audio(js, MULTI_TEXT, max_tokens=MULTI_MAX_TOKENS, copy_state=copy_state,
+                            noise_source=j_src)
+    got = pm.generate_audio(ps, MULTI_TEXT, max_tokens=MULTI_MAX_TOKENS, copy_state=copy_state,
+                            noise_source=p_src)
+    assert len(seen["port"]) == len(seen["jax"]) == 4
+    assert seen["port"] == seen["jax"]
+    assert all(eos_step is not None for _, eos_step in seen["port"]) == eos
+    assert got.shape == np.asarray(ref).shape and got.size > 0
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(host(ps.offset), np.asarray(js.offset))
+    if copy_state:
+        return
+    wp, j_wp = ps.write_pos, int(js.write_pos)
+    j_pos, p_pos = np.asarray(js.pos)[0], host(ps.pos)[0]
+    assert sorted(j_pos[j_pos >= 0]) == sorted(p_pos[p_pos >= 0])
+    # the JAX package's extra slots are all masked: past each side's
+    # watermark nothing is valid, and below it the JAX state holds exactly
+    # j_wp - wp more masked slots (its speculative frames; a later chunk's
+    # slots start after an earlier chunk's speculative ones)
+    assert (p_pos[wp:] == -1).all() and (j_pos[j_wp:] == -1).all()
+    assert j_wp - wp == int((j_pos[:j_wp] == -1).sum()) - int((p_pos[:wp] == -1).sum()) >= 0
+    # the same position holds the same key and value on both sides
+    j_slot = {int(p): s for s, p in enumerate(j_pos) if p >= 0}
+    p_slot = [s for s, p in enumerate(p_pos) if p >= 0]
+    j_idx = [j_slot[int(p_pos[s])] for s in p_slot]
+    for name in ("k", "v"):
+        np.testing.assert_allclose(host(getattr(ps, name))[:, 0, p_slot],
+                                   host(getattr(js, name))[:, 0, j_idx], rtol=1e-3, atol=1e-3)
