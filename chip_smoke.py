@@ -13,16 +13,22 @@ Phases, each of which makes the script exit non-zero when it fails:
      times and the bound: decode_stack at the flagship FlowLM width, 6 layers,
      C in {256, 512}, plain and int8 weights, and 24 layers at C=256 in bf16
      and int8, on a mid-generation cache with dead and speculative slots;
-     codec_decode on the english.yaml decoder at
-     B=1 (T = 16 and 16*8) and B=32 (T=16) with its states; flash_decode at
+     codec_decode on the english.yaml decoder with non-zero states, in bf16
+     at B in {1, 32, 128} x T in {16, 128, 512} (every block the paths
+     send), in f32 at B=1 (T = 16 and 16*8) and B=32 (T=16), timed as device
+     time by graph replay (graph_ms) beside a host loop (cuda_ms), with each
+     op's body (a tensor-core tile in bf16, the CUDA cores in f32), in bf16
+     each op alone on its tile and with that tile passed over, and profiles
+     at B=1, T=16 and B=128, T=512; flash_decode at
      B in {8, 32}, H=16, Dh=64, C in {256, 1024}, att_len < C, with dead slots,
      slots past the offset and one all-dead row; gemv at 1, 8 and 32 rows for
      every product the paths send it (GEMV_GROUPS): the FlowLM's four, plain
      and int8, the flow head's as f32 activations over bf16 weights, and the
      Mimi decoder transformer's four, the kernel and torch.matmul timed as
      device time by CUDA-graph replay (graph_ms), over weights cold in L2 and
-     warm (the other kernels' times are host-launched CUDA-event loops,
-     cuda_ms, which read the launch rate below ~0.04 ms); gemv_stack at the
+     warm (decode_stack, flash_decode and gemv_stack are timed by
+     host-launched CUDA-event loops, cuda_ms, which read the launch rate
+     below ~0.04 ms); gemv_stack at the
      int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
      at 1, 3, 8, 32 and 48 rows;
   4. reference: a small f32 model's generate_audio (B=1) and
@@ -64,7 +70,9 @@ it. Any phase that fails, or a kernel launched on no path, fails the run.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import struct
 import subprocess
 import sys
@@ -357,7 +365,51 @@ def _leaves(tree):
         yield tree
 
 
+# The codec shapes (B, T0) held and timed, by dtype: every block the serving
+# paths send in bf16 (the block ramp 1, 1, 8, ..., 32 frames of 16 positions,
+# at B=1, 32 and 128), and the b1 and B=32 one- and eight-frame blocks in f32.
+CODEC_SHAPES = {"bfloat16": tuple((B, T) for B in (1, 32, 128) for T in (16, 128, 512)),
+                "float32": ((1, 16), (1, 16 * 8), (32, 16))}
+
+
+def codec_flops(spec, T: int) -> int:
+    """Multiply-adds x 2 of one row of the decoder program at T0 = T."""
+    flops, t = 0, T
+    for kind, op in spec.ops:
+        if kind == "conv":
+            flops += 2 * op.in_channels * op.out_channels * op.kernel_size * t
+        elif kind == "convtr":
+            flops += 2 * op.in_channels * op.out_channels * op.kernel_size * t
+            t *= op.stride
+        elif kind == "resblock":
+            flops += sum(2 * c.in_channels * c.out_channels * c.kernel_size * t
+                         for c in op.convs)
+    return flops
+
+
+def codec_tiles(cd, spec, params, packed, x, state, n: int, tiles: dict) -> str:
+    """Each op of one bf16 decoder call alone, by graph replay: on the tile it
+    takes, and with that tile passed over (the tile the op would take if the
+    tile did not exist). Adds (with, without) per op to tiles[its tile]."""
+    code = {name: c for c, name in cd.BODIES.items()}
+    prog, _, _ = cd.codec_program(spec, params, packed, x, state)
+    chosen = cd.run_program(prog)  # fills every op's input
+    out = []
+    for i, body in enumerate(chosen):
+        ms = graph_ms([lambda i=i: cd.run_program(prog, [i])], n=n, reps=5)
+        alt = cd.run_program(prog, [i], skip=1 << code[body])[0]
+        alt_ms = graph_ms([lambda i=i: cd.run_program(prog, [i], skip=1 << code[body])],
+                          n=n, reps=5)
+        tiles.setdefault(body, []).append((ms, alt_ms))
+        out.append(f"{ms:.4f} {body} | {alt_ms:.4f} {alt}")
+    return "; ".join(out)
+
+
 def check_codec(report: dict) -> None:
+    """The decoder kernel against seanet_apply at CODEC_SHAPES with non-zero
+    states; kernel times as device time by graph replay (graph_ms) beside the
+    host-launched loop (cuda_ms), with the bound share and each op's body; in
+    bf16 each op alone on its tile and without it (codec_tiles)."""
     import torch
 
     from pocket_tts_tpu_torch.config import CONFIGS_DIR, load_config
@@ -368,56 +420,73 @@ def check_codec(report: dict) -> None:
     specs = build_mimi_specs(load_config(CONFIGS_DIR / "english.yaml").mimi)
     spec = specs.decoder
     g = torch.Generator(device="cuda")
+    tiles: dict = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = REL_TOL[dtype_name]
         g.manual_seed(2)
         params = init_seanet_params(spec, g, dtype, "cuda")
-        for B, T in ((1, 16), (1, 16 * 8), (32, 16)):
+        packed = cd.pack_decoder_params(spec, params) if dtype == torch.bfloat16 else None
+        for B, T in CODEC_SHAPES[dtype_name]:
+            label = f"codec_decode {dtype_name} B={B} T={T}"
             x = torch.randn((B, specs.arch.dimension, T), generator=g, device="cuda").to(dtype)
             state = _rand_seanet_state(spec, B, dtype, g)
-            y_k, s_k = cd._codec_decode_cuda(spec, params, x, state)
+
+            def kernel():
+                return cd._codec_decode_cuda(spec, params, packed, x, state)
+
+            y_k, s_k = kernel()
+            bodies = list(cd.KERNEL.bodies)
             y_p, s_p = seanet_apply(spec, params, x, state)
             torch.cuda.synchronize()
             if y_k.shape != y_p.shape or not torch.isfinite(y_k.float()).all():
-                raise AssertionError(f"codec {dtype_name} B={B} T={T}: bad output "
-                                     f"{tuple(y_k.shape)}")
+                raise AssertionError(f"{label}: bad output {tuple(y_k.shape)}")
             err, rel = rel_err(y_k, y_p)
             states = [rel_err(a, b) for a, b in zip(_leaves(s_k), _leaves(s_p))
                       if a.is_floating_point() and a.numel()]
             st_err, st_rel = max(r[0] for r in states), max(r[1] for r in states)
             if not all(torch.equal(a, b) for a, b in zip(_leaves(s_k), _leaves(s_p))
                        if not a.is_floating_point()):
-                raise AssertionError(f"codec {dtype_name} B={B} T={T}: integer states differ")
-            ms = cuda_ms(lambda: cd._codec_decode_cuda(spec, params, x, state))
-            plain_ms = cuda_ms(lambda: seanet_apply(spec, params, x, state), iters=10)
+                raise AssertionError(f"{label}: integer states differ")
+            want = "tc_" if dtype_name == "bfloat16" else "cuda_cores"
+            if not all(b.startswith(want) for b in bodies):
+                raise AssertionError(f"{label}: op bodies {bodies}")
+            del y_k, s_k, y_p, s_p
+            big = B * T >= 16384  # one call moves gigabytes: fewer calls per timing
+            ms = graph_ms([kernel], n=4 if big else 40, reps=5 if big else 7)
+            loop_ms = cuda_ms(kernel, iters=5 if big else 20)
+            plain_ms = cuda_ms(lambda: seanet_apply(spec, params, x, state),
+                               iters=3 if big else 10, warmup=1 if big else 3)
             es = torch.finfo(dtype).bits // 8
             w_elems = sum(t.numel() for t in _leaves(params) if t is not None)
             st_elems = sum(t.numel() for t in _leaves(state) if t.is_floating_point())
-            nbytes = (w_elems + x.numel() + 2 * st_elems + y_k.numel()) * es
-            flops, t = 0, T
-            for kind, op in spec.ops:
-                if kind == "conv":
-                    flops += 2 * op.in_channels * op.out_channels * op.kernel_size * t
-                elif kind == "convtr":
-                    flops += 2 * op.in_channels * op.out_channels * op.kernel_size * t
-                    t *= op.stride
-                elif kind == "resblock":
-                    flops += sum(2 * c.in_channels * c.out_channels * c.kernel_size * t
-                                 for c in op.convs)
-            flops *= B
+            out_elems = B * T * math.prod(op.stride for kind, op in spec.ops if kind == "convtr")
+            nbytes = (w_elems + x.numel() + 2 * st_elems + out_elems) * es
+            flops = B * codec_flops(spec, T)
             b_ms, b_by = bound(nbytes, flops, dtype_name)
-            if dtype_name == "bfloat16" and T == 16 and B == 1:
-                profile("codec_decode bf16 T=16 x20", lambda: [
-                    cd._codec_decode_cuda(spec, params, x, state) for _ in range(20)], top=12)
-            print(f"codec_decode {dtype_name} B={B} T={T}: max_abs_err={err:.3g} rel={rel:.3g} "
+            if dtype_name == "bfloat16" and (B, T) in ((1, 16), (128, 512)):
+                n = 20 if B == 1 else 2
+                profile(f"codec_decode bf16 B={B} T={T} x{n}",
+                        lambda: [kernel() for _ in range(n)], top=12)
+            print(f"{label}: max_abs_err={err:.3g} rel={rel:.3g} "
                   f"state_err={st_err:.3g} state_rel={st_rel:.3g} rel_tol={tol} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.0f} MFLOP)")
+                  f"kernel_ms={ms:.4f} (graph_ms; cuda_ms {loop_ms:.4f}) plain_ms={plain_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.0f} MFLOP) "
+                  f"bound_share={b_ms / ms:.3f} {flops / ms / 1e9:.1f} TFLOP/s bodies={bodies}")
             if rel > tol or st_rel > tol:
-                raise AssertionError(f"codec {dtype_name} B={B} T={T}: max |kernel - plain| "
-                                     f"/ max |plain| {rel:.3g} (states {st_rel:.3g}) > {tol}")
+                raise AssertionError(f"{label}: max |kernel - plain| / max |plain| {rel:.3g} "
+                                     f"(states {st_rel:.3g}) > {tol}")
+            if dtype_name == "bfloat16":
+                print(f"{label} per op (ms, tile | without that tile): "
+                      + codec_tiles(cd, spec, params, packed, x, state, 4 if big else 40, tiles))
             report[("codec_decode", dtype_name, B, T)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, ms=ms, cuda_ms=loop_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bodies=bodies)
+    for body, pairs in sorted(tiles.items()):
+        with_ms, without_ms = sum(p[0] for p in pairs), sum(p[1] for p in pairs)
+        worst = max(p[1] / p[0] for p in pairs)
+        print(f"codec tile {body}: taken by {len(pairs)} ops of CODEC_SHAPES, "
+              f"{with_ms:.4f} ms on it, {without_ms:.4f} without it "
+              f"(x{without_ms / with_ms:.3f}; worst op x{worst:.3f})")
 
 
 def flash_inputs(g, B, C, H, Dh, dtype, att):
@@ -1004,8 +1073,6 @@ PROBE_TARGET_S = 0.15
 def run_probe_phase() -> dict:
     """python -m pocket_tts_tpu_torch.tools.int8_gemv_probe's four variants
     at full size, rows 1 and 32, with the short chain target."""
-    import math
-
     import numpy as np
     import torch
 
@@ -1073,7 +1140,15 @@ def main() -> int:
         check_flash_decode(report)
         check_gemv(report)
         check_gemv_stack(report)
-        print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+        # the kernel phases' tensors and CUDA graphs (the codec's B=128 block
+        # alone takes gigabytes per call) are released from the allocator's
+        # cache, so that the paths below start as a fresh server would
+        reserved = torch.cuda.memory_reserved() / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s (allocator "
+              f"reserved {reserved:.1f} GiB, {torch.cuda.memory_reserved() / 2**30:.1f} after "
+              "empty_cache)")
         with tempfile.TemporaryDirectory() as d:
             check_reference(Path(d))
             check_reference_batch(Path(d))

@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA kernels: dtype conversion, rounding to
 // the working dtype, warp and block reductions, 16-byte vector loads (f32,
-// bf16 and int8 rows).
+// bf16 and int8 rows), the bf16 tensor-core product and cp.async copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -115,6 +115,44 @@ template <> struct Vec16<int8_t> {
 template <typename T> __device__ __forceinline__ float to_f_any(T v) { return to_f<T>(v); }
 template <> __device__ __forceinline__ float to_f_any<int8_t>(int8_t v) {
   return static_cast<float>(v);
+}
+
+// ------------------------------------------------ tensor cores, async copies
+
+// D += A . B on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col), f32
+// sums. Lane (g = lane / 4, t = lane % 4): a0 (row g, k 2t, 2t + 1), a1 (row
+// g + 8), a2 (row g, k 2t + 8, 2t + 9), a3 (row g + 8, k 2t + 8); b0 (k 2t,
+// 2t + 1, col g), b1 (k 2t + 8, 2t + 9); d (row g, cols 2t, 2t + 1), then row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes global -> shared, zeros when !ok; .cg bypasses L1, .ca keeps the
+// line in L1 for the other warps of the SM.
+template <bool L1>
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  if (L1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Raise the dynamic shared-memory limit of a kernel when a launch needs more

@@ -76,20 +76,6 @@ using namespace pt;
 constexpr int kMmaMaxThreads = 512;
 constexpr int kSmemMax = 227 * 1024;  // dynamic shared memory a block may take
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // A lane's 16 weight bytes as bf16 pairs: 4 pairs (bf16) or 8 (int8, widened
 // exactly: the byte's value + 2^23 + 128 is exact in f32).
 template <typename WT> struct WFrag;
@@ -168,24 +154,6 @@ struct Ring {
                                 : kRingBytes / stage > 8 ? 8 : kRingBytes / stage;
   static constexpr int bytes = stages * stage;  // per warp
 };
-
-// 16 bytes global -> shared, zeros when !ok; .cg bypasses L1, .ca keeps the
-// line in L1 for the other warps of the SM.
-template <bool L1>
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  if (L1)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 16 : 0));
-  else
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One block per tile of 16 output rows, its wk warps splitting K: warp w owns
 // the k slabs w, w + wk, w + 2 wk, ... A slab is 16 weight bytes per lane per

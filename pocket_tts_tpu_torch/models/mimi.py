@@ -7,7 +7,9 @@ cloning).
 (conv left contexts, transposed-conv tails, the transformer's sliding-window
 KV cache) carried in one explicit dict. The SEANet decoder goes through the
 codec op (ops/codec_decode.py): the CUDA kernel for every call on the card,
-whatever K; the plain program on the CPU.
+whatever K, in bf16 over the packed weights `params["decoder_packed"]` (made
+once per model by `pack_decoder_params`, see pipeline/tts.py); the plain
+program on the CPU.
 """
 
 from __future__ import annotations
@@ -176,7 +178,8 @@ def decoder_step(
     if "decoder_transformer_out_proj" in params:
         out = matmul_t(out, params["decoder_transformer_out_proj"])
     audio, dec_state = codec_decode(specs.decoder, params["decoder"],
-                                    out.transpose(1, 2).contiguous(), state["decoder"])
+                                    out.transpose(1, 2).contiguous(), state["decoder"],
+                                    params.get("decoder_packed"))
     return audio, {"upsample": up_state, "transformer": tstate, "decoder": dec_state}
 
 

@@ -82,6 +82,7 @@ from pocket_tts_tpu_torch.models.mimi import (
     project_latent,
 )
 from pocket_tts_tpu_torch.nn.transformer import StackState
+from pocket_tts_tpu_torch.ops.codec_decode import pack_decoder_params
 from pocket_tts_tpu_torch.pipeline.states import (
     batch_states,
     expand_state,
@@ -224,7 +225,13 @@ class TTSModel:
         self.specs = specs
         self.mimi_specs = mimi_specs
         self.params = params
-        self.mimi_params = mimi_params
+        # the bf16 codec kernel's weight layout, packed once per model from
+        # the final decoder weights (never taken from the caller's dict); the
+        # f32 kernel reads the torch layout
+        self.mimi_params = dict(mimi_params)
+        if mimi_params["decoder"]["0"].weight.dtype == torch.bfloat16:
+            self.mimi_params["decoder_packed"] = pack_decoder_params(mimi_specs.decoder,
+                                                                     mimi_params["decoder"])
         self.tokenizer = tokenizer
         self.config = config
         self.gen = gen_params

@@ -206,18 +206,25 @@ def test_flash_decode_skips_nan_in_dead_slots(card):
     assert torch.isfinite(fd._flash_decode_cuda(*args)).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("T", [16, 128])
-@pytest.mark.parametrize("small", [False, True], ids=["english", "small"])
-@pytest.mark.parametrize("B", [1, 4])
-def test_codec_kernel_matches_plain(card, dtype, T, small, B):
-    """The SEANet decoder with non-zero incoming states: audio and every
-    outgoing state, for one row and for a batch."""
+# (dtype, T, decoder, B): every dtype x T in {16, 128} x decoder x B in {1, 4}
+# on the english.yaml decoder and the small one (64 -> 8 filters), the small
+# one again with two residual blocks per stage (a dilation-2 conv), and the
+# rest of the blocks the serving paths send in bf16 (1-, 8- and 32-frame
+# blocks at B = 1, 32 and 128).
+CODEC_CASES = [(dt, T, geom, B) for dt in ("f32", "bf16") for T in (16, 128)
+               for geom in ("english", "small", "small-dil2") for B in (1, 4)]
+CODEC_CASES += [("bf16", T, "english", B) for B, T in ((1, 512), (32, 16), (32, 128),
+                                                       (32, 512), (128, 16), (128, 128),
+                                                       (128, 512))]
+CODEC_GEOMS = {"english": {}, "small": {"dimension": 64, "n_filters": 8},
+               "small-dil2": {"dimension": 64, "n_filters": 8, "n_residual_layers": 2}}
+
+
+def codec_case(card, dtype, T, geom, B):
+    """Decoder spec, params, packed weights (bf16; f32 needs none), input and
+    non-zero states."""
     mimi = load_config(CONFIGS_DIR / "english.yaml").mimi
-    if small:
-        mimi = mimi.model_copy(update={"seanet": mimi.seanet.model_copy(
-            update={"dimension": 64, "n_filters": 8})})
+    mimi = mimi.model_copy(update={"seanet": mimi.seanet.model_copy(update=CODEC_GEOMS[geom])})
     spec = build_mimi_specs(mimi).decoder
     params = init_seanet_params(spec, card, dtype, "cuda")
 
@@ -233,7 +240,22 @@ def test_codec_kernel_matches_plain(card, dtype, T, small, B):
         else:
             state[key] = [ConvState(rnd(c.previous), torch.zeros_like(c.first)) for c in s]
     x = torch.randn((B, mimi.seanet.dimension, T), generator=card, device="cuda").to(dtype)
-    y_k, s_k = cd._codec_decode_cuda(spec, params, x, state)
+    packed = cd.pack_decoder_params(spec, params) if dtype == torch.bfloat16 else None
+    return spec, params, packed, x, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,T,geom,B", CODEC_CASES,
+                         ids=[f"{dt}-T{T}-{geom}-B{B}" for dt, T, geom, B in CODEC_CASES])
+def test_codec_kernel_matches_plain(card, dt, T, geom, B):
+    """The SEANet decoder with non-zero incoming states: audio and every
+    outgoing state, for one row and for a batch; every bf16 op on the tensor
+    cores (the final 64 -> 1 conv zero-filled to a 16-row tile), every f32
+    op on the CUDA cores."""
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    spec, params, packed, x, state = codec_case(card, dtype, T, geom, B)
+    y_k, s_k = cd._codec_decode_cuda(spec, params, packed, x, state)
+    bodies = cd.KERNEL.bodies
     y_p, s_p = seanet_apply(spec, params, x, state)
     assert_close_rel(y_k, y_p, dtype)
     for a, b in zip(leaves(s_k), leaves(s_p)):
@@ -242,6 +264,23 @@ def test_codec_kernel_matches_plain(card, dtype, T, small, B):
                 assert_close_rel(a, b, dtype)
         else:
             assert torch.equal(a, b)
+    n_convs = sum(1 if kind in ("conv", "convtr") else len(op.convs) if kind == "resblock"
+                  else 0 for kind, op in spec.ops)
+    assert len(bodies) == n_convs
+    if dtype == torch.bfloat16:
+        assert all(b.startswith("tc_") for b in bodies), bodies
+    else:
+        assert set(bodies) == {"cuda_cores"}, bodies
+
+
+@pytest.mark.cuda
+def test_codec_kernel_needs_packed_weights(card):
+    """A bf16 CUDA call without the packed weights raises; nothing launches."""
+    spec, params, _, x, state = codec_case(card, torch.bfloat16, 16, "small", 1)
+    before = cd.KERNEL.launches
+    with pytest.raises(ValueError, match="packed"):
+        cd.codec_decode(spec, params, x, state)
+    assert cd.KERNEL.launches == before
 
 
 @pytest.mark.cuda

@@ -10,8 +10,10 @@ import torch
 from pocket_tts_tpu.pipeline import tts as jtts
 from pocket_tts_tpu.pipeline.states import export_model_state, import_model_state
 from pocket_tts_tpu_torch.config import Config as PortConfig
+from pocket_tts_tpu_torch.core.tree import tree_map
 from pocket_tts_tpu_torch.models.flow_lm import build_flow_lm_specs
 from pocket_tts_tpu_torch.models.mimi import build_mimi_specs
+from pocket_tts_tpu_torch.ops.codec_decode import pack_decoder_params
 from pocket_tts_tpu_torch.pipeline import tts as ptts
 from pocket_tts_tpu_torch.pipeline.states import import_model_state as port_import
 from small_model import build_small_tts_model
@@ -96,6 +98,25 @@ def test_generate_audio_matches_jax(models, monkeypatch, eos_threshold):
     for name in ("k", "v", "pos", "offset"):  # copy_state=True: the voice is untouched
         assert torch.equal(getattr(voice_p, name), getattr(before, name))
     assert voice_p.write_pos == before.write_pos
+
+
+def test_decoder_weights_packed_once_for_bf16_only(models):
+    """TTSModel packs the codec kernel's weights from its own decoder weights
+    for a bf16 model, and keeps no packed copy for an f32 one (the f32 kernel
+    reads the torch layout)."""
+    _, pm, _ = models
+    assert "decoder_packed" not in pm.mimi_params
+    mimi16 = tree_map(lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t,
+                      pm.mimi_params)
+    m16 = ptts.TTSModel(pm.specs, pm.mimi_specs, pm.params, mimi16, pm.tokenizer, pm.config,
+                        pm.gen, torch.device("cpu"))
+    want = pack_decoder_params(pm.mimi_specs.decoder, mimi16["decoder"])
+    got = m16.mimi_params["decoder_packed"]
+    assert set(got) == set(want)
+    for key in want:
+        for a, b in zip(want[key] if isinstance(want[key], list) else [want[key]],
+                        got[key] if isinstance(got[key], list) else [got[key]]):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 def test_copy_state_false_advances_like_jax(models):
