@@ -11,8 +11,11 @@ Phases, each of which makes the script exit non-zero when it fails:
   3. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and f32, at the main paths' shapes, with kernel, plain and library
      times and the bound: decode_stack at the flagship FlowLM width, 6 layers,
-     C in {256, 512}, plain and int8 weights, and 24 layers at C=256 in bf16
-     and int8, on a mid-generation cache with dead and speculative slots;
+     C in {256, 512} (bf16 also 1024 and 4096, ~900 and ~4000 valid slots;
+     int8 also 4096), plain and int8 weights, and 24 layers at C=256 in bf16 and int8, on a mid-generation
+     cache with dead and speculative slots, timed as device time by graph
+     replay (graph_ms) beside a host loop (cuda_ms), with its share of the
+     bound and a profile at C=256 that must show one kernel per call;
      codec_decode on the english.yaml decoder with non-zero states, in bf16
      at B in {1, 32, 128} x T in {16, 128, 512} (every block the paths
      send), in f32 at B=1 (T = 16 and 16*8) and B=32 (T=16), timed as device
@@ -26,9 +29,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      and int8, the flow head's as f32 activations over bf16 weights, and the
      Mimi decoder transformer's four, the kernel and torch.matmul timed as
      device time by CUDA-graph replay (graph_ms), over weights cold in L2 and
-     warm (decode_stack, flash_decode and gemv_stack are timed by
-     host-launched CUDA-event loops, cuda_ms, which read the launch rate
-     below ~0.04 ms); gemv_stack at the
+     warm (flash_decode and gemv_stack are timed by host-launched CUDA-event
+     loops, cuda_ms, which read the launch rate below ~0.04 ms); gemv_stack
+     at the
      int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
      at 1, 3, 8, 32 and 48 rows;
   4. reference: a small f32 model's generate_audio (B=1) and
@@ -250,10 +253,13 @@ def check_decode_stack(report: dict) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     # 6 layers (english.yaml) in every dtype; 24 layers (italian_24l and the
-    # other 24-layer configs) in the serving dtypes, bf16 and int8 rows
-    cases = [(6, "bfloat16", torch.bfloat16, False, ((256, 100), (512, 300))),
+    # other 24-layer configs) in the serving dtypes, bf16 and int8 rows. The
+    # caches run up to the pipeline's largest capacity (4096), where each
+    # head's slots are split over the most blocks the grid gives it.
+    cases = [(6, "bfloat16", torch.bfloat16, False,
+              ((256, 100), (512, 300), (1024, 900), (4096, 3993))),
              (6, "float32", torch.float32, False, ((256, 100), (512, 300))),
-             (6, "bfloat16", torch.bfloat16, True, ((256, 100),)),
+             (6, "bfloat16", torch.bfloat16, True, ((256, 100), (4096, 3993))),
              (6, "float32", torch.float32, True, ((256, 100),)),
              (24, "bfloat16", torch.bfloat16, False, ((256, 100),)),
              (24, "bfloat16", torch.bfloat16, True, ((256, 100),))]
@@ -303,8 +309,11 @@ def check_decode_stack(report: dict) -> None:
             if not untouched:
                 raise AssertionError(f"decode_stack {label} C={C}: slots other than "
                                      "write_pos changed")
-            ms = cuda_ms(lambda: ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos,
-                                                       sk.offset, n_filled))
+            def kernel():
+                ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset, n_filled)
+
+            ms = graph_ms([kernel], n=20 if L == 24 else 40)
+            host_ms = cuda_ms(kernel)
             plain_ms = cuda_ms(lambda: ds.decode_stack_plain(cfg, params, x, sp.k, sp.v, sp.pos,
                                                              sp.offset, n_filled), iters=5)
             es = torch.finfo(dtype).bits // 8
@@ -316,20 +325,25 @@ def check_decode_stack(report: dict) -> None:
             nbytes = weights + L * valid * 2 * D * es + L * 2 * D * es + 2 * D * es + C * 4
             flops = L * (2 * (4 * D * D + 2 * F * D) + 4 * (valid + 1) * D)
             b_ms, b_by = bound(nbytes, flops, dtype_name)
-            if dtype_name == "bfloat16" and C == 256 and not quant and L == 6:
-                profile("decode_stack bf16 C=256 x20", lambda: [
-                    ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset,
-                                          n_filled) for _ in range(20)], top=6)
+            if C == 256:  # one persistent launch per call, in every kind and depth
+                kernels = profile(f"decode_stack {label} C=256 x20",
+                                  lambda: [kernel() for _ in range(20)], top=4)
+                ours = {k: n for k, n, _ in kernels
+                        if not any(t in k for t in ("at::native", "Memcpy", "Memset"))}
+                if sum(ours.values()) != 20 or not all("stack_kernel" in k for k in ours):
+                    raise AssertionError(f"decode_stack {label}: kernels per 20 calls {ours}")
             print(f"decode_stack {label} C={C}: max_abs_err={err:.3g} rel={rel:.3g} "
                   f"row_err={row_err:.3g} row_rel={row_rel:.3g} rel_tol={tol} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB, "
-                  f"{nbytes / ms / 1e6:.0f} GB/s effective)")
+                  f"kernel_ms={ms:.4f} (graph replay; host loop {host_ms:.4f}) "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+                  f"{nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.0f} GB/s effective, "
+                  f"{100 * b_ms / ms:.1f}% of the bound)")
             if rel > tol or row_rel > tol:
                 raise AssertionError(f"decode_stack {label} C={C}: max |kernel - plain| "
                                      f"/ max |plain| {rel:.3g} (row {row_rel:.3g}) > {tol}")
             report[("decode_stack", label, C)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def _rand_seanet_state(spec, B, dtype, g):
@@ -770,10 +784,11 @@ def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
-def profile(label: str, fn, top: int = 8) -> None:
+def profile(label: str, fn, top: int = 8) -> list[tuple[str, int, float]]:
     """Run fn under torch.profiler: device busy share of the window and the
     kernels that take most device time. The profiler's own host cost makes
-    the window longer, so the busy share is a lower bound."""
+    the window longer, so the busy share is a lower bound. Returns every
+    kernel of the window as (name, launches, device us)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -791,6 +806,7 @@ def profile(label: str, fn, top: int = 8) -> None:
           f"({100 * busy / wall_us:.1f}%)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    return [(e.key, e.count, _device_us(e)) for e in kernels]
 
 
 def kernel_modules() -> dict:

@@ -17,23 +17,30 @@ the prompt path). There is no fallback from one to the other.
 
 Bound on the H100: bytes, the weights read once per step (151 MB in bf16 for
 the 6-layer flagship) plus the valid cache slots, at 3.35 TB/s: ~45 us. The
-kernel design (csrc/decode_stack.cu) streams each weight row once with
-16-byte loads and fuses every small op into a GEMV prologue/epilogue or the
-attention kernel.
+kernel (csrc/decode_stack.cu) is one persistent cooperative launch per step:
+one block per SM, grid barriers between a layer's five phases, and a
+producer warp per block that streams the block's rows of every product
+(csrc/row_spans.cuh) through a shared-memory ring by TMA, running ahead
+across phases and layers. The launch plan, the barrier words and the
+attention partials are the kernel module's own, per device; launches on one
+device must not run concurrently. A step may be captured in a CUDA graph
+from its first call on.
 
 int8 weights (quant.py's {"q", "s"} dicts, all four products or none) go to
-the kernel's int8 rows: 16 weights per 16-byte load and each row's f32
-scale in the epilogue, at nn/linear.matmul_t's rounding points (the product
-rounded to the working dtype, times the scale, rounded again). Mixed
+the kernel's int8 rows: half the bytes of bf16 in the ring and each row's
+f32 scale in the epilogue, at nn/linear.matmul_t's rounding points (the
+product rounded to the working dtype, times the scale, rounded again). Mixed
 quantization is not this op's: nn/transformer.py sends it down the
 per-layer loop with the flash-decode op (`stack_takes`).
 
 Unlike the TPU kernel, the weights stay in the port's own per-layer
 row-major layout (no packing), bf16 and f32 weights and caches are both
 taken (so the small test model and an f32 model run on the kernel too), and
-any D % H == 0 with even Dh and F works. Two faults of the TPU kernel are
-repaired: mixed float dtypes across in_proj/out_proj/w1/w2 raise (the TPU
-pack checked only in_proj), and an append outside 0 <= write_pos < C raises.
+any D % H == 0 with even Dh and F works on the CPU (the kernel also needs
+16-byte rows, a head of 16 to 512 bytes and at most 64 heads). Two faults of
+the TPU kernel are repaired: mixed float dtypes across in_proj/out_proj/w1/w2
+raise (the TPU pack checked only in_proj), and an append outside
+0 <= write_pos < C raises.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from pocket_tts_tpu_torch.ops.build import CudaKernel, check
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PRODUCTS = ("in_proj", "out_proj", "w1", "w2")
 _NORMS = ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias")
+_NOT_SUPPORTED = 801  # cudaErrorNotSupported: shapes the kernel does not take
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -145,8 +153,11 @@ def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
         raise ValueError("decode_stack: pos and offset must be int32")
     L, _, C, H, _ = cache_k.shape
     D, Ff = cfg.d_model, cfg.dim_feedforward
+    for name in (*_PRODUCTS, "cache_k", "cache_v"):  # read 16 bytes at a time
+        if tensors[name].data_ptr() % 16:
+            raise NotImplementedError(f"decode_stack kernel: {name} is not 16-byte aligned")
     h = x.reshape(D).clone()  # the kernel's residual stream, updated in place
-    scratch = torch.empty(4 * D + Ff, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(3 * D + Ff, dtype=x.dtype, device=x.device)  # qkv, g
     err = lib.decode_stack_run(
         _DTYPES[x.dtype], int(quant), L, D, H, Ff, C, h.data_ptr(),
         *(t.data_ptr() for t in weights),
@@ -155,6 +166,11 @@ def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
         cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), offset.data_ptr(),
         write_pos, float(cfg.max_period), scratch.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
+    if err == _NOT_SUPPORTED:
+        raise NotImplementedError(
+            f"decode_stack kernel: D={D}, H={H}, F={Ff} in {x.dtype}"
+            f"{' over int8' if quant else ''} is not a shape it takes (16-byte rows, a head of "
+            f"16 to 512 bytes, at most 64 heads, a grid of at most 1024 blocks)")
     check(err, "decode_stack_run")
     KERNEL.launches += 1
     return h.reshape(1, 1, D)

@@ -7,6 +7,10 @@ Caches are mid-generation, as in tests/test_decode_stack.py: valid slots in
 write order, a dead slot (pos = -1) inside the prefix, and speculative slots
 past the offset that must not be attended."""
 
+import ctypes
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,7 @@ from pocket_tts_tpu.ops.decode_stack import pack_decode_stack
 from pocket_tts_tpu_torch.nn.transformer import TransformerConfig
 from pocket_tts_tpu_torch.nn.transformer import transformer_apply as port_transformer_apply
 from pocket_tts_tpu_torch.ops import decode_stack as ds
+from pocket_tts_tpu_torch.ops.build import CSRC
 from torch_port import host, port
 
 SMALL = dict(d_model=64, num_heads=4, num_layers=2, dim_feedforward=128)
@@ -207,3 +212,50 @@ def test_mixed_quantization_takes_the_flash_route(monkeypatch):
     np.testing.assert_allclose(host(h), host(h_ref), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(host(new.k), host(st_ref.k), rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(host(new.pos), np.asarray(st_ref.pos))
+
+
+@pytest.fixture(scope="module")
+def span_start(tmp_path_factory):
+    """csrc/row_spans.cuh's span_start, the kernel's own partition rule,
+    compiled here by the host C++ compiler (the header is plain C++ outside
+    nvcc)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "a host C++ compiler is needed to build csrc/row_spans.cuh"
+    d = tmp_path_factory.mktemp("row_spans")
+    (d / "spans.cpp").write_text(
+        '#include "row_spans.cuh"\n'
+        'extern "C" int row_span_start(int q, int b, int G, int D, int F) {\n'
+        '  return pt::span_start(q, b, G, D, F);\n}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(CSRC), "-o",
+                    str(d / "libspans.so"), str(d / "spans.cpp")], check=True)
+    return ctypes.CDLL(str(d / "libspans.so")).row_span_start
+
+
+@pytest.mark.parametrize("grid", [66, 132, 264])
+@pytest.mark.parametrize("geom", [SMALL, FLAGSHIP], ids=["small", "flagship"])
+@pytest.mark.parametrize("num_layers", [6, 24])
+def test_row_spans_cover_every_row_once(span_start, grid, geom, num_layers):
+    """The kernel's row partition (block b streams rows span_start(q, b) ..
+    span_start(q, b + 1) of product q in every layer): every row of every
+    product once, in contiguous spans of whole row pairs (RoPE's rotation
+    pairs stay in one block), and each block's bytes over the step within
+    one pair of w2's rows (the longest) of the mean; at the flagship width
+    no block holds more than 1.01x the mean at 66 and 132 blocks (1.035x at
+    264), so none streams much longer than the rest."""
+    D, F = geom["d_model"], geom["dim_feedforward"]
+    starts = [[span_start(q, b, grid, D, F) for b in range(grid + 1)] for q in range(4)]
+    rows = (3 * D, D, F, D)
+    row_len = (D, D, D, F)  # the same element size for all four
+    for q in range(4):
+        s = starts[q]
+        assert s[0] == 0 and s[-1] == rows[q]
+        assert all(a <= b for a, b in zip(s, s[1:]))  # contiguous, in block order
+        assert all(a % 2 == 0 for a in s)  # whole pairs
+    held = [num_layers * sum((starts[q][b + 1] - starts[q][b]) * row_len[q] for q in range(4))
+            for b in range(grid)]
+    assert sum(held) == num_layers * sum(r * k for r, k in zip(rows, row_len))
+    mean = sum(held) / grid
+    pair = num_layers * 2 * F
+    assert max(held) - mean <= pair and mean - min(held) <= pair
+    if geom is FLAGSHIP:
+        assert max(held) <= (1.035 if grid == 264 else 1.01) * mean

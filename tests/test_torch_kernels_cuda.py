@@ -15,7 +15,7 @@ from pocket_tts_tpu_torch.config import CONFIGS_DIR, load_config
 from pocket_tts_tpu_torch.models.mimi import build_mimi_specs
 from pocket_tts_tpu_torch.nn.conv import ConvState, ConvTrState
 from pocket_tts_tpu_torch.nn.seanet import init_seanet_params, init_seanet_state, seanet_apply
-from pocket_tts_tpu_torch.nn.transformer import TransformerConfig, init_layer_params
+from pocket_tts_tpu_torch.nn.transformer import StackState, TransformerConfig, init_layer_params
 from pocket_tts_tpu_torch.ops import codec_decode as cd
 from pocket_tts_tpu_torch.ops import decode_stack as ds
 from pocket_tts_tpu_torch.ops import flash_decode as fd
@@ -62,19 +62,17 @@ def leaves(tree):
     return [tree]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("geom,C,offset", [
-    (dict(d_model=64, num_heads=4, num_layers=2, dim_feedforward=128), 32, 10),
-    (dict(d_model=1024, num_heads=16, num_layers=6, dim_feedforward=4096), 256, 100),
-    (dict(d_model=1024, num_heads=16, num_layers=24, dim_feedforward=4096), 256, 100),
-], ids=["small", "flagship", "flagship-24l"])
-@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
-def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset, quant):
-    """A mid-generation cache (a dead slot, 7 speculative slots past the
-    offset): same output, same appended row, every other slot untouched; for
-    plain weights and for int8 rows (attention_ffn)."""
-    cfg = TransformerConfig(**geom)
+STACK_GEOMS = {
+    "small": dict(d_model=64, num_heads=4, num_layers=2, dim_feedforward=128),
+    "flagship": dict(d_model=1024, num_heads=16, num_layers=6, dim_feedforward=4096),
+    "flagship-24l": dict(d_model=1024, num_heads=16, num_layers=24, dim_feedforward=4096),
+}
+
+
+def stack_case(card, dtype, geom, C, offset, quant):
+    """(cfg, params, k, v, pos, offset, x, write_pos): a mid-generation cache
+    with a dead slot (5) and 7 speculative slots past the offset."""
+    cfg = TransformerConfig(**STACK_GEOMS[geom])
     L, H, D = cfg.num_layers, cfg.num_heads, cfg.d_model
     params = init_layer_params(cfg, card, dtype, "cuda")
     if quant:
@@ -87,16 +85,114 @@ def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset, quant):
     pos[0, 5] = -1
     off = torch.tensor([offset], dtype=torch.int32, device="cuda")
     x = (torch.randn((1, 1, D), generator=card, device="cuda") * 0.3).to(dtype)
+    return cfg, params, k, v, pos, off, x, wp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom,C,offset", [
+    ("small", 32, 10), ("flagship", 256, 100), ("flagship", 1024, 900),
+    ("flagship", 2048, 700), ("flagship", 4096, 3993), ("flagship-24l", 256, 100),
+], ids=["small", "flagship", "flagship-c1024", "flagship-c2048", "flagship-c4096",
+        "flagship-24l"])
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+def test_decode_stack_kernel_matches_plain(card, dtype, geom, C, offset, quant):
+    """A mid-generation cache (a dead slot, 7 speculative slots past the
+    offset): same output, same appended row, every other slot untouched; for
+    plain weights and for int8 rows (attention_ffn). Each head's filled slots
+    are split over write_pos / 128 of its blocks, at most grid / H: one at
+    C=256, 6 at ~700 valid slots (C=2048), and the cap at ~900 and ~4000 (8
+    on a 132-SM H100, where blocks 128-131 attend to nothing), with the
+    largest attended-slot lists the pipeline's capacities (up to 4096)
+    give."""
+    cfg, params, k, v, pos, off, x, wp = stack_case(card, dtype, geom, C, offset, quant)
     kk, vk, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
     h_k = ds._decode_stack_cuda(cfg, params, x, kk, vk, pos, off, wp)
     h_p = ds.decode_stack_plain(cfg, params, x, kp, vp, pos, off, wp)
-    scale = stack_depth_scale(dtype, L)
+    scale = stack_depth_scale(dtype, cfg.num_layers)
     assert_close_rel(h_k, h_p, dtype, scale)
     assert_close_rel(kk[:, :, wp], kp[:, :, wp], dtype, scale)
     assert_close_rel(vk[:, :, wp], vp[:, :, wp], dtype, scale)
     others = torch.arange(C, device="cuda") != wp
     assert torch.equal(kk[:, :, others], k[:, :, others])
     assert torch.equal(vk[:, :, others], v[:, :, others])
+
+
+def plain_apply(cfg, params, x, st):
+    """decode_stack_apply with the plain version on the card."""
+    wp = st.write_pos
+    h = ds.decode_stack_plain(cfg, params, x, st.k, st.v, st.pos, st.offset, wp)
+    st.pos[:, wp] = st.offset
+    return h, StackState(k=st.k, v=st.v, pos=st.pos, offset=st.offset + 1, write_pos=wp + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+def test_decode_stack_two_steps_match_plain(card, dtype, quant):
+    """Two consecutive steps through decode_stack_apply equal two plain
+    steps: the barrier words are reused by the second launch, and its
+    attention reads the row the first appended."""
+    cfg, params, k, v, pos, off, x, wp = stack_case(card, dtype, "flagship", 256, 100, quant)
+    x2 = (torch.randn(x.shape, generator=card, device="cuda") * 0.3).to(dtype)
+    sk = StackState(k=k.clone(), v=v.clone(), pos=pos.clone(), offset=off.clone(), write_pos=wp)
+    sp = StackState(k=k.clone(), v=v.clone(), pos=pos.clone(), offset=off.clone(), write_pos=wp)
+    scale = stack_depth_scale(dtype, cfg.num_layers)
+    for xi in (x, x2):
+        h_k, sk = ds.decode_stack_apply(cfg, params, xi, sk)
+        h_p, sp = plain_apply(cfg, params, xi, sp)
+        assert_close_rel(h_k, h_p, dtype, scale)
+    assert sk.write_pos == sp.write_pos == wp + 2
+    assert torch.equal(sk.pos, sp.pos) and torch.equal(sk.offset, sp.offset)
+    for slot in (wp, wp + 1):
+        assert_close_rel(sk.k[:, :, slot], sp.k[:, :, slot], dtype, scale)
+        assert_close_rel(sk.v[:, :, slot], sp.v[:, :, slot], dtype, scale)
+    others = (torch.arange(k.shape[2], device="cuda") < wp) | (
+        torch.arange(k.shape[2], device="cuda") > wp + 1)
+    assert torch.equal(sk.k[:, :, others], k[:, :, others])
+    assert torch.equal(sk.v[:, :, others], v[:, :, others])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+def test_decode_stack_graph_replay_is_bit_equal(card, quant):
+    """One step captured in a CUDA graph and replayed twice from fresh state
+    copies gives the eager launch's bits: output, caches and all. The capture
+    comes first: the launch needs no eager call before it (run alone, this
+    test captures the kind's very first launch)."""
+    dtype = torch.bfloat16
+    cfg, params, k, v, pos, off, x, wp = stack_case(card, dtype, "flagship", 256, 100, quant)
+    ks, vs = k.clone(), v.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h_g = ds._decode_stack_cuda(cfg, params, x, ks, vs, pos, off, wp)
+    ke, ve = k.clone(), v.clone()
+    h_e = ds._decode_stack_cuda(cfg, params, x, ke, ve, pos, off, wp)
+    for _ in range(2):
+        ks.copy_(k)
+        vs.copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(h_g, h_e)
+        assert torch.equal(ks, ke) and torch.equal(vs, ve)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_stack_skips_nan_in_dead_slots(card, dtype):
+    """NaN in the k and v of a dead slot (pos = -1) and of the speculative
+    slots past the offset: the output is finite and equals the plain
+    version's over the clean cache. Masked slots are skipped, never
+    multiplied by a zero weight."""
+    cfg, params, k, v, pos, off, x, wp = stack_case(card, dtype, "flagship", 256, 100, False)
+    dead = ((pos < 0) | (pos > off)).reshape(1, 1, -1, 1, 1)
+    kn = torch.where(dead, float("nan"), k.float()).to(dtype)
+    vn = torch.where(dead, float("nan"), v.float()).to(dtype)
+    h_k = ds._decode_stack_cuda(cfg, params, x, kn, vn, pos, off, wp)
+    h_p = ds.decode_stack_plain(cfg, params, x, k.clone(), v.clone(), pos, off, wp)
+    assert torch.isfinite(h_k.float()).all()
+    assert_close_rel(h_k, h_p, dtype)
 
 
 GEMV_KINDS = {  # x dtype, weight dtype, int8 (quantized from weights of that dtype)
