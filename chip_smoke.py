@@ -22,16 +22,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      time by graph replay (graph_ms) beside a host loop (cuda_ms), with each
      op's body (a tensor-core tile in bf16, the CUDA cores in f32), in bf16
      each op alone on its tile and with that tile passed over, and profiles
-     at B=1, T=16 and B=128, T=512; flash_decode at
-     B in {8, 32}, H=16, Dh=64, C in {256, 1024}, att_len < C, with dead slots,
-     slots past the offset and one all-dead row; gemv at 1, 8 and 32 rows for
+     at B=1, T=16 and B=128, T=512; flash_decode at H=16, Dh=64 (FD_CASES):
+     B in {8, 32}, C in {256, 1024} with rows filled from 8 slots up to
+     att_len < C (dead slots, slots past the offset), and rows filled as the
+     batched paths fill them at B=32 and 128 (C=256, ~200 slots) and at B=8
+     (C=4096, ~4,000 slots), each with one all-dead row, timed as device time
+     by graph replay over inputs cold in L2 beside a host loop, SDPA timed
+     the same way, with each case's splits (the cluster's size), body, share
+     of the bound and the parent kernel's time; gemv at 1, 8 and 32 rows for
      every product the paths send it (GEMV_GROUPS): the FlowLM's four, plain
      and int8, the flow head's as f32 activations over bf16 weights, and the
      Mimi decoder transformer's four, the kernel and torch.matmul timed as
      device time by CUDA-graph replay (graph_ms), over weights cold in L2 and
-     warm (flash_decode and gemv_stack are timed by host-launched CUDA-event
-     loops, cuda_ms, which read the launch rate below ~0.04 ms); gemv_stack
-     at the
+     warm (gemv_stack is timed by a host-launched CUDA-event loop, cuda_ms,
+     which reads the launch rate below ~0.04 ms); gemv_stack at the
      int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
      at 1, 3, 8, 32 and 48 rows;
   4. reference: a small f32 model's generate_audio (B=1) and
@@ -503,12 +507,15 @@ def check_codec(report: dict) -> None:
               f"(x{without_ms / with_ms:.3f}; worst op x{worst:.3f})")
 
 
-def flash_inputs(g, B, C, H, Dh, dtype, att):
-    """q, caches, k_new / v_new, pos, offset for one flash-decode call: row 0
-    all dead; every other row fills a prefix of its own length (below att)
-    in write order, every 7th slot dead, its last 3 slots past the offset.
-    v_new and k_new are strided views of a packed qkv row, as the main path
-    gives them."""
+def flash_inputs(g, B, C, H, Dh, dtype, att, fill="ramp"):
+    """q, caches, k_new / v_new, pos, offset for one flash-decode call. Row 0
+    is all dead. "ramp": row b fills a prefix of 8 + (att - 8) b / (B - 1)
+    slots, every 7th slot dead and its last 3 slots past the offset (half the
+    attended slots dead on average); "serving": row b fills att - (b % 8)
+    slots, as the batched paths fill their rows (a voice, the prompt, then
+    the steps), with a few dead slots (every 61st, a ragged prompt's
+    padding). v_new and k_new are strided views of a packed qkv row, as the
+    main path gives them."""
     import torch
 
     q = torch.randn((B, H, Dh), generator=g, device="cuda").to(dtype)
@@ -518,12 +525,85 @@ def flash_inputs(g, B, C, H, Dh, dtype, att):
     pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
     offset = torch.zeros((B,), dtype=torch.int32, device="cuda")
     for b in range(1, B):
-        fill = min(att, 8 + (att - 8) * b // (B - 1))
-        p = torch.arange(fill, dtype=torch.int32, device="cuda")
-        p[6::7] = -1
-        pos[b, :fill] = p
-        offset[b] = fill - 4
+        p = torch.arange(C, dtype=torch.int32, device="cuda")
+        if fill == "ramp":
+            n = min(att, 8 + (att - 8) * b // (B - 1))
+            p[6::7] = -1
+            offset[b] = n - 4
+        else:
+            n = att - b % 8
+            p[29::61] = -1
+            offset[b] = n - 1
+        pos[b, :n] = p[:n]
     return q, k, v, packed[:, 1], packed[:, 2], pos, offset
+
+
+# flash_decode cases (B, C, att_len, fill), each in bf16 and f32 (fill as in
+# flash_inputs): the ramp at two batches and caches, the batched paths' own
+# rows at B=32 and 128 (C=256, ~200 slots), and a long cache (~4,000 valid
+# slots) at B=8.
+FD_CASES = ((8, 256, 200, "ramp"), (32, 256, 200, "ramp"), (8, 1024, 900, "ramp"),
+            (32, 1024, 900, "ramp"), (32, 256, 200, "serving"), (128, 256, 200, "serving"),
+            (8, 4096, 4064, "serving"))
+# Timed over input sets of at least this many cache bytes in all (4x the
+# H100's 50 MB L2), so every call reads its cache rows from HBM, as the
+# serving paths do (6 layers of caches outgrow the L2 at B=32).
+FD_COLD_BYTES = 200e6
+
+
+def flash_sets(args, n_sets: int):
+    """n_sets copies of one call's inputs (the first is `args` itself)."""
+    return [args] + [tuple(a.clone() for a in args) for _ in range(n_sets - 1)]
+
+
+def flash_sdpa_inputs(args, att: int):
+    """SDPA's inputs for the same function: q [B, H, 1, Dh], [cache || new]
+    keys and values [B, H, att + 1, Dh] and the boolean mask."""
+    import torch
+
+    q, k, v, kn, vn, pos, off = args
+    B = q.shape[0]
+    valid = (pos[:, :att] >= 0) & (pos[:, :att] <= off[:, None])
+    mask = torch.cat([valid, torch.ones((B, 1), dtype=torch.bool, device=q.device)],
+                     dim=1)[:, None, None, :]
+    kc = torch.cat([k[:, :att], kn[:, None]], dim=1).transpose(1, 2).contiguous()
+    vc = torch.cat([v[:, :att], vn[:, None]], dim=1).transpose(1, 2).contiguous()
+    return q[:, :, None, :].contiguous(), kc, vc, mask
+
+
+def flash_bound(args, att: int, dtype_name: str) -> tuple[float, str, int, int]:
+    """(bound ms, bound_by, bytes, valid slots) of one call: the valid key and
+    value rows, q, k_new, v_new and the output once, pos and offset."""
+    q, k, _, _, _, pos, off = args
+    B, H, Dh = q.shape
+    es = k.element_size()
+    n_valid = int(((pos[:, :att] >= 0) & (pos[:, :att] <= off[:, None])).sum().item())
+    nbytes = (2 * n_valid + 4 * B) * H * Dh * es + B * att * 4 + B * 4
+    flops = 4 * (n_valid + B) * H * Dh
+    b_ms, b_by = bound(nbytes, flops, dtype_name)
+    return b_ms, b_by, nbytes, n_valid
+
+
+# Device ms of the parent kernel (commit e5d17bc's csrc/flash_decode.cu: one
+# block per (b, h) walking all of its row, K then V) at FD_CASES, by graph
+# replay over inputs cold in L2 as below (H100 80GB HBM3 at 700 W), printed
+# beside the kernel's own time.
+PARENT_FD_MS = {
+    ("bfloat16", 8, 256, "ramp"): 0.020644,
+    ("bfloat16", 32, 256, "ramp"): 0.021062,
+    ("bfloat16", 8, 1024, "ramp"): 0.075750,
+    ("bfloat16", 32, 1024, "ramp"): 0.077737,
+    ("bfloat16", 32, 256, "serving"): 0.022297,
+    ("bfloat16", 128, 256, "serving"): 0.051503,
+    ("bfloat16", 8, 4096, "serving"): 0.310980,
+    ("float32", 8, 256, "ramp"): 0.031286,
+    ("float32", 32, 256, "ramp"): 0.033385,
+    ("float32", 8, 1024, "ramp"): 0.132843,
+    ("float32", 32, 1024, "ramp"): 0.136197,
+    ("float32", 32, 256, "serving"): 0.036334,
+    ("float32", 128, 256, "serving"): 0.070340,
+    ("float32", 8, 4096, "serving"): 0.593042,
+}
 
 
 def check_flash_decode(report: dict) -> None:
@@ -532,52 +612,55 @@ def check_flash_decode(report: dict) -> None:
 
     from pocket_tts_tpu_torch.ops import flash_decode as fd
 
+    def sdpa(s):
+        return F.scaled_dot_product_attention(s[0], s[1], s[2], attn_mask=s[3])
+
     H, Dh = 16, 64
     g = torch.Generator(device="cuda")
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = REL_TOL[dtype_name]
         g.manual_seed(5)
-        for B, C, att in ((8, 256, 200), (32, 256, 200), (8, 1024, 900), (32, 1024, 900)):
-            args = flash_inputs(g, B, C, H, Dh, dtype, att)
-            q, k, v, kn, vn, pos, off = args
+        for B, C, att, fill in FD_CASES:
+            label = f"flash_decode {dtype_name} B={B} C={C} att_len={att} {fill}"
+            args = flash_inputs(g, B, C, H, Dh, dtype, att, fill)
             out_k = fd._flash_decode_cuda(*args, att_len=att)
             out_p = fd.flash_decode_plain(*args, att_len=att)
             torch.cuda.synchronize()
             if out_k.shape != (B, H, Dh) or not torch.isfinite(out_k.float()).all():
-                raise AssertionError(f"flash_decode {dtype_name} B={B} C={C}: bad output")
+                raise AssertionError(f"{label}: bad output")
             err, rel = rel_err(out_k, out_p)
-            dead_err, dead_rel = rel_err(out_k[0], vn[0])  # all dead: the new value alone
-            ms = cuda_ms(lambda: fd._flash_decode_cuda(*args, att_len=att))
+            _, dead_rel = rel_err(out_k[0], args[4][0])  # all dead: the new value alone
+            if rel > tol or dead_rel > tol:
+                raise AssertionError(f"{label}: max |kernel - plain| / max |plain| {rel:.3g} "
+                                     f"(all-dead row {dead_rel:.3g}) > {tol}")
+            plan = fd.plan(*args, att_len=att)
+            # device time over inputs cold in L2; the host loop reuses one set
+            cache_bytes = 2 * args[1].numel() * args[1].element_size()
+            sets = flash_sets(args, max(2, math.ceil(FD_COLD_BYTES / cache_bytes)))
+            ms = graph_ms([lambda a=a: fd._flash_decode_cuda(*a, att_len=att) for a in sets])
+            host_ms = cuda_ms(lambda: fd._flash_decode_cuda(*args, att_len=att))
             plain_ms = cuda_ms(lambda: fd.flash_decode_plain(*args, att_len=att), iters=10)
             # library: SDPA of the same q over [cache || new] with the same
-            # boolean mask; the concatenated k/v and the mask are built here,
-            # outside the timed call
-            valid = (pos[:, :att] >= 0) & (pos[:, :att] <= off[:, None])
-            mask = torch.cat([valid, torch.ones((B, 1), dtype=torch.bool, device="cuda")],
-                             dim=1)[:, None, None, :]
-            kc = torch.cat([k[:, :att], kn[:, None]], dim=1).transpose(1, 2).contiguous()
-            vc = torch.cat([v[:, :att], vn[:, None]], dim=1).transpose(1, 2).contiguous()
-            qq = q[:, :, None, :].contiguous()
-            lib_out = F.scaled_dot_product_attention(qq, kc, vc, attn_mask=mask)[:, :, 0]
-            lib_err, _ = rel_err(lib_out, out_p)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qq, kc, vc, attn_mask=mask))
-            es = torch.finfo(dtype).bits // 8
-            n_valid = int(valid.sum().item())
-            nbytes = (2 * n_valid + 4 * B) * H * Dh * es + B * att * 4 + B * 4
-            flops = 4 * (n_valid + B) * H * Dh
-            b_ms, b_by = bound(nbytes, flops, dtype_name)
-            print(f"flash_decode {dtype_name} B={B} C={C} att_len={att}: max_abs_err={err:.3g} "
-                  f"rel={rel:.3g} all_dead_rel={dead_rel:.3g} rel_tol={tol} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"(library err {lib_err:.3g}) bound_ms={b_ms:.4f} "
-                  f"({b_by}, {nbytes / 1e6:.2f} MB, {n_valid} valid slots)")
-            if rel > tol or dead_rel > tol:
-                raise AssertionError(f"flash_decode {dtype_name} B={B} C={C}: max |kernel - "
-                                     f"plain| / max |plain| {rel:.3g} (all-dead row "
-                                     f"{dead_rel:.3g}) > {tol}")
-            report[("flash_decode", dtype_name, B, C)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+            # boolean mask, its inputs built outside the timed calls
+            lib_sets = [flash_sdpa_inputs(a, att) for a in sets]
+            lib_err, _ = rel_err(sdpa(lib_sets[0])[:, :, 0], out_p)
+            lib_ms = graph_ms([lambda s=s: sdpa(s) for s in lib_sets])
+            lib_host_ms = cuda_ms(lambda: sdpa(lib_sets[0]))
+            del sets, lib_sets
+            b_ms, b_by, nbytes, n_valid = flash_bound(args, att, dtype_name)
+            parent = PARENT_FD_MS.get((dtype_name, B, C, fill), "not measured")
+            print(f"{label}: {plan['splits']} splits ({plan['body']} body, {plan['smem']} B "
+                  f"shared memory a block) max_abs_err={err:.3g} rel={rel:.3g} "
+                  f"all_dead_rel={dead_rel:.3g} rel_tol={tol} kernel_ms={ms:.4f} (graph replay, "
+                  f"cold; host loop {host_ms:.4f}) parent_ms={parent} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (host loop "
+                  f"{lib_host_ms:.4f}; err {lib_err:.3g}) bound_ms={b_ms:.4f} ({b_by}, "
+                  f"{nbytes / 1e6:.2f} MB, {n_valid} valid slots, "
+                  f"{100 * b_ms / ms:.1f}% of the bound)")
+            report[("flash_decode", dtype_name, B, C, fill)] = dict(
+                max_abs_err=err, ms=ms, cuda_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_cuda_ms=lib_host_ms,
+                splits=plan["splits"], body=plan["body"])
 
 
 # Every product the smoke's paths send to the gemv kernel: [O, I] by name,
@@ -1036,8 +1119,14 @@ def run_batch(model, voice, B: int, label: str, seed: int, profile_it: bool = Fa
     if not same_state(voice, before):
         raise AssertionError(f"{label}: the callers' voice state changed")
     if profile_it:
-        profile(f"one {label} request", lambda: model.generate_audio_batch_from_texts(
+        kernels = profile(f"one {label} request", lambda: model.generate_audio_batch_from_texts(
             [voice] * B, texts, seed=seed), top=16)
+        busy = sum(us for _, _, us in kernels)
+        fd_us = sum(us for k, _, us in kernels if "flash_decode" in k)
+        fd_n = sum(n for k, n, _ in kernels if "flash_decode" in k)
+        print(f"{label}: flash_decode {fd_us / 1e3:.3f} ms of the request's {busy / 1e3:.2f} ms "
+              f"device time ({100 * fd_us / busy:.1f}%) in {fd_n} launches "
+              f"({fd_us / max(fd_n, 1):.2f} us each)")
     return total
 
 
@@ -1116,7 +1205,7 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel replaced, report key of the line'
                      ("codec_decode", "bfloat16", 1, 16)),
     "flash_decode": ("pocket_tts_tpu_torch/csrc/flash_decode.cu",
                      "pocket_tts_tpu/ops/flash_decode.py:239",
-                     ("flash_decode", "bfloat16", 32, 256)),
+                     ("flash_decode", "bfloat16", 32, 256, "serving")),
     "gemv": ("pocket_tts_tpu_torch/csrc/gemv.cu", "pocket_tts_tpu/ops/gemv.py:73",
              ("gemv", "bfloat16", "w1", 32)),
     "gemv_stack": ("pocket_tts_tpu_torch/csrc/gemv_stack.cu", "tools/int8_gemv_probe.py:143",

@@ -13,10 +13,20 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 (csrc/flash_decode.cu); on a CPU tensor it runs `flash_decode_plain`, the
 same function in plain PyTorch. There is no fallback from one to the other.
 Both round the normalised softmax weights to the cache dtype before the
-value sum, as `flash_decode_ref` and the production `attend_cached` do (the
-TPU kernel divides at the end instead).
+value sum, as `flash_decode_ref` and the production `attend_cached` do. The
+TPU kernel's online softmax divides at the end instead; a weight's rounding
+needs the row's final max and denominator, so the kernel cannot rescale
+partial sums as it goes.
 
-Bound on the H100: bytes, the valid k/v rows read once at 3.35 TB/s.
+The kernel splits each (b, h) row's attended slots over the blocks of a
+thread-block cluster (csrc/flash_splits.cuh chooses how many). Each block
+streams its range's key rows, then its value rows, into a small ring in
+shared memory by cp.async, so values are in flight while the last keys are
+scored. The blocks exchange their (max, sum of exp) through distributed
+shared memory before any weight is rounded, and the leader block adds the
+partial value sums in a fixed order. It is one launch per call, capturable
+in a CUDA graph. Bound on the H100: bytes, the valid k/v rows read once at
+3.35 TB/s. `plan` says how a call is launched.
 """
 
 from __future__ import annotations
@@ -28,9 +38,10 @@ import torch
 
 from pocket_tts_tpu_torch.ops.build import CudaKernel, check
 
-MAX_ATT = 4096  # the kernel keeps one f32 score per attended slot in shared memory
+MAX_ATT = 4096  # the op's contract (the kernel's splits keep at most 512 scores a block)
 NEG = torch.finfo(torch.float32).min
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BODIES = {0: "async", 1: "narrow"}  # rows of 2^k 16-byte pieces by cp.async; element loads
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -39,6 +50,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     f.argtypes = ([ctypes.c_int] * 6
                   + [ctypes.c_void_p, ctypes.c_longlong] * 3
                   + [ctypes.c_void_p] * 6)
+    p = lib.flash_decode_plan
+    p.restype = ctypes.c_int
+    p.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
 
 
 KERNEL = CudaKernel("flash_decode", _bind)
@@ -114,6 +128,20 @@ def _flash_decode_cuda(q, cache_k, cache_v, k_new, v_new, pos, offset,
     check(err, "flash_decode_run")
     KERNEL.launches += 1
     return out
+
+
+def plan(q, cache_k, cache_v, k_new, v_new, pos, offset,
+         att_len: int | None = None) -> dict:
+    """How `_flash_decode_cuda` launches for these CUDA tensors: `splits`
+    (blocks per (b, h) row, the cluster's size), `body` ("async" or "narrow")
+    and shared-memory `smem` bytes per block."""
+    B, C, H, Dh = cache_k.shape
+    att = _attended(C, att_len)
+    out = (ctypes.c_int * 3)()
+    err = KERNEL.load().flash_decode_plan(_DTYPES[q.dtype], B, H, Dh, C, att,
+                                          cache_k.data_ptr(), cache_v.data_ptr(), out)
+    check(err, "flash_decode_plan")
+    return dict(splits=out[0], body=BODIES[out[1]], smem=out[2])
 
 
 def flash_decode(q, cache_k, cache_v, k_new, v_new, pos, offset,

@@ -9,6 +9,10 @@ Caches carry dead slots (pos = -1) inside the prefix, slots written past the
 row's offset (speculative: never attended), never-written tails, per-row
 offsets, and one row whose slots are all dead."""
 
+import ctypes
+import shutil
+import subprocess
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from pocket_tts_tpu_torch.nn.transformer import TransformerConfig
 from pocket_tts_tpu_torch.nn.transformer import init_stack_state
 from pocket_tts_tpu_torch.nn.transformer import transformer_apply as port_transformer_apply
 from pocket_tts_tpu_torch.ops import flash_decode as fd
+from pocket_tts_tpu_torch.ops.build import CSRC
 from torch_port import host
 
 TOL = 2e-5
@@ -94,7 +99,7 @@ def test_bf16_rounds_weights_like_the_ref():
 def test_takes_predicate():
     assert fd.flash_decode_takes(4096, 64) and fd.flash_decode_takes(100, 16)
     assert fd.flash_decode_takes(0, 128)
-    assert not fd.flash_decode_takes(4097, 64)  # one f32 score per slot in shared memory
+    assert not fd.flash_decode_takes(4097, 64)  # the op's contract
     assert not fd.flash_decode_takes(256, 15)  # odd head dim
     assert not fd.flash_decode_takes(256, 256)
 
@@ -120,3 +125,50 @@ def test_batched_decode_routes_to_flash_decode(monkeypatch):
     assert calls == []
     port_transformer_apply(cfg, params, torch.randn((3, 1, 32), generator=g), state)
     assert calls == [5, 5]  # once per layer, over the 5 written slots
+
+
+@pytest.fixture(scope="module")
+def splits_lib(tmp_path_factory):
+    """csrc/flash_splits.cuh, the kernel's own split rule, compiled here by the
+    host C++ compiler (the header is plain C++ outside nvcc)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "a host C++ compiler is needed to build csrc/flash_splits.cuh"
+    d = tmp_path_factory.mktemp("flash_splits")
+    (d / "splits.cpp").write_text(
+        '#include "flash_splits.cuh"\n'
+        'extern "C" int splits(int rows, int att, int sms) {\n'
+        '  return pt::fd_splits(rows, att, sms);\n}\n'
+        'extern "C" int split_start(int att, int S, int r) {\n'
+        '  return pt::fd_split_start(att, S, r);\n}\n'
+        'extern "C" int limit(int i) {\n'
+        '  const int v[4] = {pt::kFdMaxSplits, pt::kFdBlocksPerSm, pt::kFdMaxSlots,\n'
+        '                    pt::kFdMinSlots};\n  return v[i];\n}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(CSRC), "-o",
+                    str(d / "libsplits.so"), str(d / "splits.cpp")], check=True)
+    return ctypes.CDLL(str(d / "libsplits.so"))
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+@pytest.mark.parametrize("B,H", [(1, 16), (2, 16), (8, 16), (32, 16), (128, 16), (4, 4)])
+def test_splits_cover_every_attended_slot_once(splits_lib, sms, B, H):
+    """The kernel's split of a row (block r of the row's cluster attends
+    slots fd_split_start(att, S, r) .. fd_split_start(att, S, r + 1) - 1),
+    at every att_len the op takes: S is a power of two up to the portable
+    cluster size; the ranges are consecutive, cover [0, att) once and differ
+    in size by at most one slot; a split holds at least the minimum unless
+    the row is not split; and a row stops being cut only at the cap, at the
+    minimum, or once the grid has the blocks per SM it aims for and no split
+    is too long."""
+    max_s, per_sm, max_slots, min_slots = (splits_lib.limit(i) for i in range(4))
+    rows = B * H
+    for att in range(fd.MAX_ATT + 1):
+        S = splits_lib.splits(rows, att, sms)
+        assert S in (1, 2, 4, 8) and S <= max_s
+        starts = [splits_lib.split_start(att, S, r) for r in range(S + 1)]
+        assert starts[0] == 0 and starts[-1] == att
+        sizes = [b - a for a, b in zip(starts, starts[1:])]
+        assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+        if S > 1:
+            assert min(sizes) >= min_slots
+        if S < max_s and att >= 2 * S * min_slots:
+            assert rows * S >= per_sm * sms and max(sizes) <= max_slots

@@ -258,9 +258,11 @@ def test_gemv_stack_kernel_raises_on_misaligned_or_foreign_inputs(card):
         gs.gemv_stack(x, Wq, s.cpu())
 
 
-def flash_case(g, B, C, H, Dh, dtype, att):
+def flash_case(g, B, C, H, Dh, dtype, att, serving=False):
     """Dead slots, slots past the offset, per-row offsets, row 0 all dead;
-    v_new a strided view of a packed qkv row, as qkv_project gives it."""
+    v_new a strided view of a packed qkv row, as qkv_project gives it. Rows
+    fill up to att slots in steps (or, `serving`, to att - (b % 8) slots with
+    every 61st dead, as the batched paths fill them)."""
     q = torch.randn((B, H, Dh), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, C, H, Dh), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, C, H, Dh), generator=g, device="cuda").to(dtype)
@@ -269,28 +271,41 @@ def flash_case(g, B, C, H, Dh, dtype, att):
     pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
     offset = torch.zeros((B,), dtype=torch.int32, device="cuda")
     for b in range(1, B):
-        fill = min(att, 5 + (att * b) // B)
+        fill = max(att - b % 8, 0) if serving else min(att, 5 + (att * b) // B)
         p = torch.arange(fill, dtype=torch.int32, device="cuda")
-        p[3::7] = -1
+        if serving:
+            p[29::61] = -1
+        else:
+            p[3::7] = -1
         pos[b, :fill] = p
-        offset[b] = max(fill - 4, 0)  # the last slots lie past the offset
+        offset[b] = max(fill - (1 if serving else 4), 0)  # ramp: the last slots lie past it
     return q, k, v, kn, vn, pos, offset
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,C,H,Dh,att", [
-    (8, 256, 16, 64, 200), (3, 1024, 16, 64, 1024), (4, 64, 4, 16, 40), (2, 48, 2, 6, 48),
-], ids=["b8", "b3-full", "small", "narrow-dh"])
-def test_flash_decode_kernel_matches_plain(card, dtype, B, C, H, Dh, att):
-    """att_len below and at the capacity, the small model's Dh=16, and a head
-    dim that takes the narrow (non-16-byte) loads."""
-    args = flash_case(card, B, C, H, Dh, dtype, att)
+@pytest.mark.parametrize("B,C,H,Dh,att,serving", [
+    (8, 256, 16, 64, 200, False), (3, 1024, 16, 64, 1024, False), (4, 64, 4, 16, 40, False),
+    (2, 48, 2, 6, 48, False), (2, 4096, 16, 64, 4064, True), (128, 256, 16, 64, 200, True),
+    (4, 64, 4, 16, 0, False), (3, 512, 2, 6, 500, False),
+], ids=["b8", "b3-full", "small", "narrow-dh", "b2-c4096", "b128-serving", "att0",
+        "narrow-split"])
+def test_flash_decode_kernel_matches_plain(card, dtype, B, C, H, Dh, att, serving):
+    """att_len below and at the capacity, the small model's Dh=16, a head dim
+    that takes the narrow (non-16-byte) body, alone and split eight ways,
+    ~4,000 valid slots split eight ways, the B=128 serving fill and no
+    attended slot at all."""
+    args = flash_case(card, B, C, H, Dh, dtype, att, serving)
     out_k = fd._flash_decode_cuda(*args, att_len=att)
     out_p = fd.flash_decode_plain(*args, att_len=att)
     assert out_k.dtype == dtype and out_k.shape == (B, H, Dh)
     assert_close_rel(out_k, out_p, dtype)
     assert_close_rel(out_k[0], args[4][0], dtype)  # all dead: the new value alone
+    plan = fd.plan(*args, att_len=att)
+    pieces, rest = divmod(Dh * args[1].element_size(), 16)  # 16-byte pieces of a slot row
+    assert plan["body"] == ("narrow" if rest or pieces & (pieces - 1) else "async")
+    if att >= 500:
+        assert plan["splits"] == 8
 
 
 @pytest.mark.cuda
@@ -300,6 +315,63 @@ def test_flash_decode_skips_nan_in_dead_slots(card):
     dead = args[5] < 0
     args[2] = torch.where(dead[:, :, None, None], float("nan"), args[2])
     assert torch.isfinite(fd._flash_decode_cuda(*args)).all()
+
+
+@pytest.mark.cuda
+def test_flash_decode_skips_nan_in_dead_slots_of_every_split(card):
+    """bf16 at the flagship head shape, each row split eight ways with dead
+    and past-the-offset slots in every split: NaN in their keys and values
+    changes no bit of the output."""
+    B, C, S = 8, 1024, 8
+    args = list(flash_case(card, B, C, 16, 64, torch.bfloat16, C))
+    assert fd.plan(*args)["splits"] == S
+    pos, off = args[5], args[6]
+    dead = (pos < 0) | (pos > off[:, None])
+    for b in range(1, B):
+        for r in range(S):
+            assert dead[b, C * r // S:C * (r + 1) // S].any(), (b, r)
+    want = fd._flash_decode_cuda(*args)
+    for i in (1, 2):
+        args[i] = torch.where(dead[:, :, None, None], float("nan"), args[i].float()).to(
+            torch.bfloat16)
+    got = fd._flash_decode_cuda(*args)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_all_dead_row_under_splits(card, dtype):
+    """Rows with no attended slot, split eight ways (every block of their
+    clusters finds nothing), give exactly v_new; the other rows match plain."""
+    B, C, att = 4, 4096, 4064
+    args = flash_case(card, B, C, 16, 64, dtype, att, serving=True)
+    args[5][2] = -1  # a second all-dead row beside row 0
+    assert fd.plan(*args, att_len=att)["splits"] == 8
+    out = fd._flash_decode_cuda(*args, att_len=att)
+    for b in (0, 2):
+        assert torch.equal(out[b], args[4][b])
+    assert_close_rel(out, fd.flash_decode_plain(*args, att_len=att), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,att", [(32, 256, 200), (2, 4096, 4064)], ids=["b32", "b2-c4096"])
+def test_flash_decode_graph_replay_is_bit_equal(card, B, C, att):
+    """The launch captured in a CUDA graph (before any eager launch: run
+    alone, this test captures the kernel's very first launch) and replayed
+    gives the eager launch's bits."""
+    args = flash_case(card, B, C, 16, 64, torch.bfloat16, att, serving=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = fd._flash_decode_cuda(*args, att_len=att)
+    out_e = fd._flash_decode_cuda(*args, att_len=att)
+    assert fd.plan(*args, att_len=att)["splits"] > 1
+    for _ in range(2):
+        out_g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, out_e)
 
 
 # (dtype, T, decoder, B): every dtype x T in {16, 128} x decoder x B in {1, 4}
