@@ -87,6 +87,7 @@
 
 #include "common.cuh"
 #include "row_spans.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -140,66 +141,7 @@ __device__ __forceinline__ float* part_new(const Params& p) {
 
 // ------------------------------------------------------------ primitives
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-
-// A wait that outlasts this many cycles (~10 s) is a fault: trap, so the
-// launch fails with an error instead of hanging the card.
-constexpr long long kSpinLimit = 20000000000LL;
-
-__device__ __forceinline__ void watchdog(long long t0) {
-  if (clock64() - t0 > kSpinLimit) __trap();
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  const uint32_t a = smem_u32(b);
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (!done) {
-    watchdog(t0);
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-// 1-D TMA: `bytes` (a multiple of 16) from global to shared memory, counted
-// on the mbarrier as they land. The weights are read once per step and
-// outnumber the L2, so they go in evict-first: the cache rows and the
-// activations stay.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* b, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(b)), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
+// mbarriers, TMA copies and the watchdog are in tma.cuh.
 
 // Barrier of the consumer warps only (the producer never joins it).
 __device__ __forceinline__ void consumer_sync() {

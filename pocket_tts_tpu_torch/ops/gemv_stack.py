@@ -16,8 +16,10 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 function in plain PyTorch. Both routes take the same inputs and raise on the
 same others; there is no fallback from one to the other.
 
-Bound on the H100: bytes, Wq read once (plus s, x and y) at 3.35 TB/s; see
-the source for the design.
+Bound on the H100: bytes, Wq read once (plus s, x and y) at 3.35 TB/s. The
+kernel reads Wq as one flat [L * O, I] stream: a block per SM, a producer
+warp keeping TMA copies in a shared-memory ring, consumer warps on the tensor
+cores (see the source).
 """
 
 from __future__ import annotations

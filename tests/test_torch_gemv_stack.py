@@ -20,10 +20,15 @@ rounding per step that the chain can grow to a flipped sign. The chains are
 therefore held against the tool compiled with that option off (its roundings
 as written); one step is held against the default compile at the bf16 bar.
 The CUDA kernel is held against the plain version on the card in
-tests/test_torch_kernels_cuda.py."""
+tests/test_torch_kernels_cuda.py; its launch plan and span rule
+(csrc/gemv_stack_plan.cuh, plain C++) are compiled here by the host C++
+compiler and checked for coverage and fit."""
 
 import ast
+import ctypes
 import functools
+import shutil
+import subprocess
 import types
 from pathlib import Path
 
@@ -36,6 +41,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from pocket_tts_tpu_torch.ops import gemv_stack as gs
+from pocket_tts_tpu_torch.ops.build import CSRC
 from pocket_tts_tpu_torch.tools import int8_gemv_probe as probe
 from torch_port import host
 
@@ -206,3 +212,82 @@ def test_probe_main_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         probe.main(["1"])
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """csrc/gemv_stack_plan.cuh, the kernel's own launch plan and span rule,
+    compiled here by the host C++ compiler (the header is plain C++ outside
+    nvcc)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "a host C++ compiler is needed to build csrc/gemv_stack_plan.cuh"
+    d = tmp_path_factory.mktemp("gemv_stack_plan")
+    (d / "plan.cpp").write_text(
+        '#include "gemv_stack_plan.cuh"\n'
+        'extern "C" void plan(int R, int I, int optin, long long* out) {\n'
+        '  const pt::GsPlan p = pt::gs_plan(R, I, optin);\n'
+        '  const long long v[8] = {p.groups, p.rows, p.nt, p.kc, p.kpasses, p.stages,\n'
+        '                          p.x_stride, p.smem};\n'
+        '  for (int i = 0; i < 8; ++i) out[i] = v[i];\n}\n'
+        'extern "C" long long span_start(int b, int G, long long tiles) {\n'
+        '  return pt::gs_span_start(b, G, tiles);\n}\n'
+        'extern "C" int limit(int i) {\n'
+        '  const int v[7] = {pt::kGsTileRows, pt::kGsChunk, pt::kGsStageBytes,\n'
+        '                    pt::kGsMaxGroup, pt::kGsMaxStages, pt::kGsMinStages,\n'
+        '                    pt::kGsFixedBytes};\n  return v[i];\n}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(CSRC), "-o",
+                    str(d / "libplan.so"), str(d / "plan.cpp")], check=True)
+    lib = ctypes.CDLL(str(d / "libplan.so"))
+    lib.span_start.restype = ctypes.c_longlong
+    lib.span_start.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    return lib
+
+
+H100_OPTIN = 232448  # shared memory a block may take on an H100 (227 KB)
+
+
+def gs_plan(lib, R, I, optin=H100_OPTIN):
+    out = (ctypes.c_longlong * 8)()
+    lib.plan(R, I, optin, out)
+    return dict(zip(("groups", "rows", "nt", "kc", "kpasses", "stages", "x_stride", "smem"),
+                    out))
+
+
+@pytest.mark.parametrize("I", [16, 784, 1024, 1040, 4096, 65536])
+def test_plan_covers_x_and_fits(plan_lib, I):
+    """The kernel's passes over x (csrc/gemv_stack_plan.cuh) at every row
+    count up to 200: balanced row groups of at most 64 rows that cover R
+    once, column passes of whole 128-column chunks that cover I once, x rows
+    at a stride whose bank offset is 16 bytes (the B fragments' conflict-free
+    rule), a ring of 8 to 24 stages, all in the block's shared memory; the
+    probe's I = 1024 at up to 64 rows in a single pass."""
+    tile, chunk, stage, max_group, max_st, min_st, fixed = (plan_lib.limit(i) for i in range(7))
+    assert stage == tile * chunk
+    for R in range(1, 201):
+        p = gs_plan(plan_lib, R, I)
+        assert p["smem"] > 0
+        assert p["rows"] <= 8 * p["nt"] <= max_group and 8 * (p["nt"] - 1) < p["rows"]
+        assert p["groups"] * p["rows"] >= R > (p["groups"] - 1) * p["rows"]
+        assert p["groups"] == -(-R // max_group)
+        assert p["kc"] % chunk == 0 and p["kpasses"] * p["kc"] >= I > (p["kpasses"] - 1) * p["kc"]
+        assert p["x_stride"] == 2 * p["kc"] + 16 and p["x_stride"] % 128 == 16
+        assert min_st <= p["stages"] <= max_st
+        x_bytes = 8 * p["nt"] * p["x_stride"]
+        assert p["smem"] == fixed + p["stages"] * stage + x_bytes <= H100_OPTIN
+        if I <= 1040 and R <= max_group:
+            assert p["groups"] == 1 and p["kpasses"] == 1
+
+
+@pytest.mark.parametrize("G", [1, 7, 132, 264])
+@pytest.mark.parametrize("L,O", [(48, 4096), (5, 72), (1, 16), (3, 200), (1, 1)])
+def test_spans_cover_every_row_once(plan_lib, G, L, O):
+    """Block b of a G-block grid streams the 16-row tiles span_start(b) ..
+    span_start(b + 1) - 1 of the flat [L * O, I] weight: consecutive spans
+    that cover every tile once and differ in size by at most one tile (the
+    kernel takes min(G, tiles) blocks, so none is empty there)."""
+    tiles = -(-(L * O) // 16)
+    grid = min(G, tiles)
+    starts = [plan_lib.span_start(b, grid, tiles) for b in range(grid + 1)]
+    assert starts[0] == 0 and starts[-1] == tiles
+    sizes = [b - a for a, b in zip(starts, starts[1:])]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1

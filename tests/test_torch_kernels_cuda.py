@@ -226,24 +226,72 @@ def test_gemv_kernel_matches_plain(card, kind, R, O, I):
     assert_close_rel(y_k, y_p, y_p.dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 3, 8, 32, 48])
-@pytest.mark.parametrize("L,O,I", [(48, 4096, 1024), (3, 200, 784)], ids=["probe", "ragged"])
-def test_gemv_stack_kernel_matches_plain(card, R, L, O, I):
-    """The probe's stacked int8 weight, and an O that fills no block and an I
-    that fills no 512-column tile; int8 -128 and 127 included; more than 32
-    rows take two row groups. f32 sums of exact products: 1e-4."""
-    x = torch.randn((R, I), generator=card, device="cuda").to(torch.bfloat16)
-    Wq = torch.randint(-128, 128, (L, O, I), generator=card, device="cuda", dtype=torch.int8)
+GEMV_STACK_SHAPES = {  # (L, O, I)
+    "probe": (48, 4096, 1024),  # the int8 GEMV probe's stacked weight
+    "ragged": (3, 200, 784),    # O fills no 64-row tile, I no 128-column chunk
+    "straddle": (5, 72, 1040),  # 64-row tiles straddle layers; I is no whole 64-column slab
+    "one-tile": (1, 16, 16),    # a single 16-row tile of 16 columns
+}
+
+
+def gemv_stack_case(g, R, L, O, I):
+    """x [R, I] bf16, Wq [L, O, I] int8 with -128 and 127, s [L, O] f32."""
+    x = torch.randn((R, I), generator=g, device="cuda").to(torch.bfloat16)
+    Wq = torch.randint(-128, 128, (L, O, I), generator=g, device="cuda", dtype=torch.int8)
     Wq[0, :2, :3] = -128
     Wq[-1, -1, -5:] = 127
-    s = torch.rand((L, O), generator=card, device="cuda")
+    s = torch.rand((L, O), generator=g, device="cuda")
+    return x, Wq, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 3, 8, 16, 17, 24, 32, 33, 48, 64])
+@pytest.mark.parametrize("L,O,I", list(GEMV_STACK_SHAPES.values()), ids=list(GEMV_STACK_SHAPES))
+def test_gemv_stack_kernel_matches_plain(card, R, L, O, I):
+    """Every row count of one pass over x (up to 64 rows: 1 to 8 n-tiles,
+    full and partial) on the probe's stacked weight and on shapes whose
+    tiles and slabs are cut short; int8 -128 and 127 included. f32 sums of
+    exact products: 1e-4."""
+    x, Wq, s = gemv_stack_case(card, R, L, O, I)
     before = gs.KERNEL.launches
     y_k = gs.gemv_stack(x, Wq, s)
     assert gs.KERNEL.launches == before + 1
     y_p = gs.gemv_stack_plain(x, Wq, s)
     assert y_k.dtype == torch.float32 and y_k.shape == (L, R, O)
     assert_close_rel(y_k, y_p, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,O,I", [(1, 48, 4096, 1024), (48, 48, 4096, 1024),
+                                     (130, 3, 200, 784), (5, 2, 64, 40000)],
+                         ids=["probe-1", "probe-48", "groups", "column-passes"])
+def test_gemv_stack_launches_are_bit_equal(card, R, L, O, I):
+    """Two launches give the same bits: no atomics, no order that depends on
+    timing; also where rows of x take several groups and I several column
+    passes (partial sums through y), both held to the plain version too."""
+    x, Wq, s = gemv_stack_case(card, R, L, O, I)
+    y1 = gs.gemv_stack(x, Wq, s)
+    y2 = gs.gemv_stack(x, Wq, s)
+    assert torch.equal(y1, y2)
+    assert_close_rel(y1, gs.gemv_stack_plain(x, Wq, s), torch.float32)
+
+
+@pytest.mark.cuda
+def test_gemv_stack_graph_replay_is_bit_equal(card):
+    """The launch captured in a CUDA graph (before any eager launch: run
+    alone, this test captures the kernel's very first launch) and replayed
+    gives the eager launch's bits."""
+    x, Wq, s = gemv_stack_case(card, 32, 48, 4096, 1024)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g = gs._gemv_stack_cuda(x, Wq, s)
+    y_e = gs._gemv_stack_cuda(x, Wq, s)
+    for _ in range(2):
+        y_g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_g, y_e)
 
 
 @pytest.mark.cuda
