@@ -54,6 +54,15 @@ Phases, each of which makes the script exit non-zero when it fails:
      the counters its route predicts and that the callers' voice states are
      bit-unchanged, and prints audio-s/s beside the card's name and power
      limit;
+  5b. voice cloning at english.yaml width: the port's own random f32 params
+     (a seeded generator) written as a safetensors checkpoint, load_model
+     from it in bf16 without allow_random_init, two wav voices (10 s mono
+     24 kHz, 6 s stereo 44.1 kHz: the downmix and the resample) cloned
+     through cached_get_state_for_audio_prompt (LRU(2): a, b, a with a hit),
+     the encoder's time per voice-second in bf16 and f32, the first voice's
+     f32 state on the card against the CPU's, then 2 b1 requests and one
+     streamed on the cloned voice with the route and the cached state
+     checked, and a profile of one request;
   6. the 24-layer models: italian_24l b1 in bf16 (2 requests and one
      streamed, then a profile of one request and of a first chunk) and in
      int8 (2 requests), with the same checks;
@@ -212,9 +221,12 @@ def write_tokenizer(path: Path, n_pieces: int) -> None:
     path.write_bytes(data)
 
 
-def write_config(tmp: Path, small: bool = False, name: str = "english") -> Path:
+def write_config(tmp: Path, small: bool = False, name: str = "english",
+                 checkpoint: Path | None = None) -> Path:
     """A shipped config (english.yaml unless `name` says otherwise) with a
-    local toy tokenizer (and, for `small`, the test suite's small geometry)."""
+    local toy tokenizer (and, for `small`, the test suite's small geometry).
+    Its checkpoint is the local file `checkpoint`, or none (random weights
+    by allow_random_init): the smoke never reaches for the published one."""
     import yaml
 
     from pocket_tts_tpu_torch.config import CONFIGS_DIR
@@ -225,6 +237,8 @@ def write_config(tmp: Path, small: bool = False, name: str = "english") -> Path:
     if not tok.exists():
         write_tokenizer(tok, n_bins)
     cfg["flow_lm"]["lookup_table"]["tokenizer_path"] = str(tok)
+    cfg["weights_path"] = None if checkpoint is None else str(checkpoint)
+    cfg["weights_path_without_voice_cloning"] = None
     if small:
         # FlowLM and flow-head widths of 128, so that their products of at
         # most 32 rows take the gemv kernel as at full width
@@ -238,7 +252,8 @@ def write_config(tmp: Path, small: bool = False, name: str = "english") -> Path:
         cfg["mimi"]["quantizer"].update(dimension=8, output_dimension=64)
         cfg["mimi"]["inner_dim"] = 8
         cfg["mimi"]["outer_dim"] = 64
-    path = tmp / ("small.yaml" if small else f"{name}.yaml")
+    path = tmp / ("small.yaml" if small else
+                  f"{name}{'' if checkpoint is None else '-' + checkpoint.stem}.yaml")
     path.write_text(yaml.safe_dump(cfg))
     return path
 
@@ -1174,6 +1189,166 @@ def run_24l_paths(tmp: Path) -> dict:
     return paths
 
 
+def write_wav(path: Path, seconds: float, rate: int, channels: int, seed: int) -> None:
+    """A voice file by the stdlib wave module: 16-bit PCM of seeded noise
+    shaped like speech (a 150 Hz buzz with 4 Hz syllables)."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    buzz = np.sign(np.sin(2 * np.pi * 150 * t)) * (0.5 + 0.5 * np.sin(2 * np.pi * 4 * t))
+    audio = 0.2 * buzz[:, None] + 0.05 * rng.standard_normal((t.size, channels))
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(channels)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def event_ms(fn):
+    """(fn's result, ms between CUDA events recorded before and after it)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def encoder_ms(model, wav: Path, label: str) -> float:
+    """The Mimi encoder alone on one voice (read and resampled as
+    get_state_for_audio_prompt does): warm, then the median of 3 runs
+    between CUDA events, and the device time a profile of one run sums."""
+    import torch
+
+    from pocket_tts_tpu_torch.io.audio import audio_read, convert_audio
+    from pocket_tts_tpu_torch.models.mimi import encode_to_latent
+
+    audio, sr = audio_read(wav)
+    audio = convert_audio(audio, sr, model.sample_rate, 1)
+    x = torch.from_numpy(audio[None]).to(model.device)
+    secs = x.shape[-1] / model.sample_rate
+
+    def run():
+        return encode_to_latent(model.mimi_specs, model.mimi_params, x)
+
+    run()
+    ms = sorted(event_ms(run)[1] for _ in range(3))[1]
+    kernels = profile(f"encoder {label} {wav.name}", run, top=6)
+    dev = sum(us for _, _, us in kernels) / 1e3
+    print(f"encoder {label} {wav.name}: {secs:.2f} s of voice, {ms:.3f} ms between events "
+          f"({ms / secs:.3f} ms per voice-second), device {dev:.3f} ms "
+          f"({dev / secs:.3f} ms per voice-second) [{card_line()}]")
+    return ms / secs
+
+
+def run_voice_cloning(tmp: Path) -> dict:
+    """Checkpoint loading and voice cloning at english.yaml width: the port's
+    own random f32 params (a seeded generator) written as a checkpoint,
+    load_model from it (no allow_random_init) in bf16, two wav voices cloned
+    through cached_get_state_for_audio_prompt, the first also in f32 on the
+    card against the CPU, then b1 requests on the cloned voice with the
+    route and the cached state checked. Returns the launches of the path
+    (the cloning and the requests)."""
+    import torch
+
+    from pocket_tts_tpu_torch.config import CONFIGS_DIR, load_config
+    from pocket_tts_tpu_torch.core.bridge import to_numpy
+    from pocket_tts_tpu_torch.core.weights import save_combined_checkpoint
+    from pocket_tts_tpu_torch.io.audio import audio_read, convert_audio
+    from pocket_tts_tpu_torch.models.flow_lm import build_flow_lm_specs, init_flow_lm_params
+    from pocket_tts_tpu_torch.models.mimi import build_mimi_specs, init_mimi_params
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    t0 = time.perf_counter()
+    cfg = load_config(CONFIGS_DIR / "english.yaml")
+    mimi_specs = build_mimi_specs(cfg.mimi)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    params = init_flow_lm_params(build_flow_lm_specs(cfg), g, torch.float32, "cuda")
+    mimi = init_mimi_params(mimi_specs, g, torch.float32, "cuda")
+    ckpt = tmp / "english-random.safetensors"
+    save_combined_checkpoint(ckpt, to_numpy(params), mimi_specs, to_numpy(mimi))
+    del params, mimi
+    config = write_config(tmp, checkpoint=ckpt)
+    print(f"voice cloning: checkpoint {ckpt.stat().st_size / 1e6:.1f} MB written in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    t1 = time.perf_counter()
+    model = TTSModel.load_model(config=config, param_dtype="bfloat16", eos_threshold=1e9)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    if not model.has_voice_cloning or model.mimi_params["encoder"]["0"].weight.dtype != \
+            torch.bfloat16:
+        raise AssertionError("voice cloning: the checkpoint loaded without its encoder")
+    print(f"voice cloning: load_model bf16 from the checkpoint in {load_s:.2f} s "
+          f"[{card_line()}]")
+
+    voices = {"a": (tmp / "voice-a-24k-mono.wav", 10.0, 24000, 1),
+              "b": (tmp / "voice-b-44k-stereo.wav", 6.0, 44100, 2)}
+    for i, (path, secs, rate, ch) in enumerate(voices.values()):
+        write_wav(path, secs, rate, ch, seed=30 + i)
+    # the host's one-time cost (scipy.signal's import by the first resample)
+    # is kept out of the clone times below
+    t2 = time.perf_counter()
+    convert_audio(*audio_read(voices["b"][0]), model.sample_rate, 1)
+    print(f"voice cloning: first wav read and resample (scipy.signal imported) "
+          f"{(time.perf_counter() - t2) * 1e3:.1f} ms on the host")
+    reset_counts()
+    states, hits = {}, []
+    for name in ("a", "b", "a"):  # LRU(2): a and b are built, the second a is a hit
+        path = voices[name][0]
+        state, ms = event_ms(lambda p=path: model.cached_get_state_for_audio_prompt(str(p)))
+        hit = name in states
+        if hit and state is not states[name]:
+            raise AssertionError("voice cloning: LRU(2) rebuilt voice a")
+        states.setdefault(name, state)
+        hits.append(hit)
+        print(f"voice cloning {name} ({path.name}): state of {int(state.offset[0])} positions "
+              f"(capacity {state.k.shape[2]}, {state.k.dtype}) in {ms:.2f} ms between CUDA "
+              f"events ({'LRU hit' if hit else 'built'})")
+        if not (torch.isfinite(state.k.float()).all() and torch.isfinite(state.v.float()).all()):
+            raise AssertionError(f"voice cloning {name}: non-finite bf16 state")
+    clone_counts = read_counts()
+    print(f"voice cloning LRU(2) a, b, a: hits {hits}, launches {clone_counts}")
+    enc_bf16 = encoder_ms(model, voices["a"][0], "bf16")
+    encoder_ms(model, voices["b"][0], "bf16")
+
+    # f32 on the card against the CPU, the same checkpoint and voice
+    card32 = TTSModel.load_model(config=config, eos_threshold=1e9)
+    cpu32 = TTSModel.load_model(config=config, eos_threshold=1e9, device="cpu")
+    enc_f32 = encoder_ms(card32, voices["a"][0], "f32")
+    got = card32.get_state_for_audio_prompt(voices["a"][0])
+    want = cpu32.get_state_for_audio_prompt(voices["a"][0])
+    errs = [rel_err(getattr(got, n).cpu(), getattr(want, n)) for n in ("k", "v")]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    same_pos = (torch.equal(got.pos.cpu(), want.pos) and torch.equal(got.offset.cpu(), want.offset)
+                and got.write_pos == want.write_pos)
+    print(f"voice cloning f32 state card vs cpu: {int(want.offset[0])} positions, "
+          f"max_abs_err={err:.3g} rel={rel:.3g} rel_tol={REL_TOL['float32']}")
+    if rel > REL_TOL["float32"] or not same_pos:
+        raise AssertionError(f"voice cloning: f32 state card vs cpu rel {rel:.3g} "
+                             f"(positions equal: {same_pos})")
+    del card32, cpu32, got, want
+
+    voice = states["a"]
+    counts = run_b1(model, voice, "voice cloning b1 bf16", MAIN_TEXTS[:2], [600, 601],
+                    stream_seed=609)
+    if model.cached_get_state_for_audio_prompt(str(voices["a"][0])) is not voice:
+        raise AssertionError("voice cloning: the cached voice state was evicted")
+    profile("one cloned-voice request",
+            lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=602), top=8)
+    print(f"voice cloning: encoder {enc_bf16:.3f} ms (bf16) and {enc_f32:.3f} ms (f32) per "
+          f"voice-second between events; phase {time.perf_counter() - t0:.1f} s "
+          f"[{card_line()}]")
+    return {k: counts[k] + clone_counts[k] for k in counts}
+
+
 # The probe's chain target: long enough that the slope's two walls dwarf the
 # host's jitter, short enough for the smoke (the probe's own default is 2 s).
 PROBE_TARGET_S = 0.15
@@ -1265,6 +1440,8 @@ def main() -> int:
             paths = {"b1 bf16": b1, **run_batched_paths(Path(d), model, voice)}
             del model, voice
             print(f"6-layer paths done at {time.perf_counter() - t_start:.1f} s")
+            paths["voice clone b1 bf16"] = run_voice_cloning(Path(d))
+            print(f"voice cloning done at {time.perf_counter() - t_start:.1f} s")
             paths.update(run_24l_paths(Path(d)))
             print(f"24-layer paths done at {time.perf_counter() - t_start:.1f} s")
         paths["probe"] = run_probe_phase()

@@ -1,6 +1,11 @@
-"""Mimi codec, decoder side: depthwise upsample + windowed transformer + SEANet
-decoder. Port of pocket_tts_tpu/models/mimi.py (the encoder comes with voice
-cloning).
+"""Mimi codec: SEANet encoder and decoder, windowed transformers and the
+frame-rate resamplers. Port of pocket_tts_tpu/models/mimi.py.
+
+`encode_to_latent` is one-shot (voice cloning): wav [B, 1, T] at 24 kHz ->
+latents [B, inner_dim, ceil(T/1920)] at 12.5 Hz, through the SEANet encoder
+(200 Hz), the encoder transformer over the whole sequence (causal, windowed,
+no cache) and the stride-16 downsample. It is plain PyTorch (F.conv1d and
+matmuls), as the JAX package leaves it to XLA: no Pallas kernel runs there.
 
 `decoder_step` is streaming: K latent frames at 12.5 Hz -> 16K codec steps ->
 1920K samples at 24 kHz, any K per call, with every piece of streaming state
@@ -17,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from pocket_tts_tpu_torch.config import MimiConfig
 from pocket_tts_tpu_torch.nn.conv import (
@@ -24,6 +30,7 @@ from pocket_tts_tpu_torch.nn.conv import (
     ConvTrSpec,
     conv1d_step,
     conv_transpose1d_step,
+    get_extra_padding_for_conv1d,
     init_conv_params,
     init_conv_tr_state,
 )
@@ -32,14 +39,17 @@ from pocket_tts_tpu_torch.nn.seanet import (
     SEANetArch,
     SEANetSpec,
     decoder_spec,
+    encoder_spec,
     init_seanet_params,
     init_seanet_state,
+    seanet_apply,
 )
 from pocket_tts_tpu_torch.nn.transformer import (
     TransformerConfig,
     init_layer_params,
     init_stack_state,
     transformer_apply,
+    transformer_oneshot,
 )
 from pocket_tts_tpu_torch.ops.codec_decode import codec_decode
 
@@ -47,6 +57,7 @@ from pocket_tts_tpu_torch.ops.codec_decode import codec_decode
 @dataclass(frozen=True)
 class MimiSpecs:
     arch: SEANetArch
+    encoder: SEANetSpec
     decoder: SEANetSpec
     transformer: TransformerConfig
     quantizer_dim: int  # latent dim (32)
@@ -71,8 +82,25 @@ class MimiSpecs:
         return bool(self.t_output_dims) and self.t_output_dims[0] != self.transformer.d_model
 
     @property
+    def encoder_frame_rate(self) -> float:
+        return self.sample_rate / self.hop_length
+
+    @property
+    def hop_length(self) -> int:
+        n = 1
+        for r in self.arch.ratios:
+            n *= r
+        return n
+
+    @property
     def frame_size(self) -> int:
         return int(self.sample_rate / self.frame_rate)
+
+    @property
+    def downsample_spec(self) -> ConvSpec:
+        s = self.downsample_stride
+        return ConvSpec(self.arch.dimension, self.inner_dim, 2 * s, stride=s,
+                        pad_mode="replicate")
 
     @property
     def upsample_spec(self) -> ConvTrSpec:
@@ -108,6 +136,7 @@ def build_mimi_specs(cfg: MimiConfig) -> MimiSpecs:
                          f"{t.output_dimensions}")
     return MimiSpecs(
         arch=arch,
+        encoder=encoder_spec(arch),
         decoder=decoder_spec(arch),
         transformer=tcfg,
         quantizer_dim=cfg.quantizer.dimension,
@@ -122,10 +151,11 @@ def build_mimi_specs(cfg: MimiConfig) -> MimiSpecs:
     )
 
 
-def init_mimi_decoder_params(specs: MimiSpecs, generator: torch.Generator,
-                             dtype=torch.float32, device="cuda") -> dict:
-    """Random init of the decoder-side weights (the JAX package's shapes and
-    distributions, not its bits)."""
+def init_mimi_params(specs: MimiSpecs, generator: torch.Generator,
+                     dtype=torch.float32, device="cuda") -> dict:
+    """Random init with the JAX package's tree, shapes and distributions (not
+    its bits). The decoder side is drawn first, so that a seeded generator
+    gives the decoder the same weights whatever the encoder's size."""
     params = {
         "decoder": init_seanet_params(specs.decoder, generator, dtype, device),
         "decoder_transformer": init_layer_params(specs.transformer, generator, dtype, device),
@@ -145,6 +175,15 @@ def init_mimi_decoder_params(specs: MimiSpecs, generator: torch.Generator,
         params["decoder_transformer_in_proj"] = unif(d, specs.t_input_dim)
     if specs.has_output_proj:
         params["decoder_transformer_out_proj"] = unif(specs.t_output_dims[0], d)
+    params["encoder"] = init_seanet_params(specs.encoder, generator, dtype, device)
+    params["encoder_transformer"] = init_layer_params(specs.transformer, generator, dtype,
+                                                      device)
+    params["downsample"] = init_conv_params(specs.downsample_spec, generator, dtype, device,
+                                            bias=False)
+    if specs.has_input_proj:
+        params["encoder_transformer_in_proj"] = unif(d, specs.t_input_dim)
+    if specs.has_output_proj:
+        params["encoder_transformer_out_proj"] = unif(specs.t_output_dims[0], d)
     return params
 
 
@@ -158,6 +197,28 @@ def init_decoder_state(specs: MimiSpecs, batch_size: int, dtype=torch.float32,
         "transformer": init_stack_state(specs.transformer, batch_size, W, dtype, device),
         "decoder": init_seanet_state(specs.decoder, batch_size, dtype, device),
     }
+
+
+def encode_to_latent(specs: MimiSpecs, params: dict, audio: torch.Tensor) -> torch.Tensor:
+    """Wav [B, 1, T] -> latents [B, inner_dim, ceil(T/1920)], one shot: pad to a
+    whole frame, SEANet encode, the windowed transformer over the whole
+    sequence, the strided downsample to 12.5 Hz. Every stage is causal, so
+    the JAX package's extra padding to a frame bucket (sliced off again)
+    changes no latent: the port encodes at the true length."""
+    fs = specs.frame_size
+    pad = get_extra_padding_for_conv1d(audio.shape[-1], fs, fs)
+    if pad:
+        audio = F.pad(audio, (0, pad))
+    emb, _ = seanet_apply(specs.encoder, params["encoder"], audio, None)
+    h = emb.transpose(1, 2)
+    if "encoder_transformer_in_proj" in params:
+        h = matmul_t(h, params["encoder_transformer_in_proj"])
+    out = transformer_oneshot(specs.transformer, params["encoder_transformer"], h)
+    if "encoder_transformer_out_proj" in params:
+        out = matmul_t(out, params["encoder_transformer_out_proj"])
+    latent, _ = conv1d_step(out.transpose(1, 2), specs.downsample_spec, params["downsample"],
+                            None)
+    return latent
 
 
 def decoder_step(

@@ -20,6 +20,15 @@ package splits blocks of T >= 128 into 64-query chunks
 (`attend_windowed_chunked`) to bound the [B, H, T, W+T] logits at large batch;
 at batch 1 those logits are a few MB (T = 512, W = 256: 3 MB in f32), so the
 port keeps the one masked product, whose numerics are the same.
+
+The one-shot path (voice encoding: `mha_oneshot`) attends a whole sequence
+with no cache, positions 0..T-1. The JAX package builds [B, H, T, T] f32
+logits in one piece (`attend`); at the Mimi encoder's 200 Hz a 30 s voice is
+6,000 positions, 1.2 GB of logits a layer. With a context window each query
+sees at most `context` keys, so `mha_oneshot` takes the queries in blocks of
+ONESHOT_BLOCK rows against only the keys a block can see: the same masked
+softmax (a masked key's weight is an exact 0 either way), summed over fewer
+zeros.
 """
 
 from __future__ import annotations
@@ -29,10 +38,11 @@ import math
 import torch
 
 from pocket_tts_tpu_torch.nn.linear import matmul_t
-from pocket_tts_tpu_torch.nn.rope import rotate
+from pocket_tts_tpu_torch.nn.rope import rope_tables, rotate
 from pocket_tts_tpu_torch.ops.flash_decode import flash_decode
 
 NEG = torch.finfo(torch.float32).min
+ONESHOT_BLOCK = 512  # query rows per block of the windowed one-shot attention
 
 
 def qkv_project(x: torch.Tensor, in_proj, num_heads: int):
@@ -40,6 +50,28 @@ def qkv_project(x: torch.Tensor, in_proj, num_heads: int):
     B, T, D = x.shape
     packed = matmul_t(x, in_proj).reshape(B, T, 3, num_heads, D // num_heads)
     return packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+
+
+def attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos_q: torch.Tensor,
+    pos_k: torch.Tensor,
+    context: int | None,
+) -> torch.Tensor:
+    """Single-piece masked SDPA. q: [B,T,H,Dh]; k/v: [B,C,H,Dh]; pos_q: [B,T];
+    pos_k: [B,C]. Logits and softmax in f32, the weights cast to v's dtype
+    before the value product, as in the JAX package. Returns [B,T,H,Dh]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bthd,bchd->bhtc", q.float(), k.float()) * scale
+    delta = pos_q[:, :, None] - pos_k[:, None, :]  # [B, T, C]
+    mask = (pos_k[:, None, :] >= 0) & (delta >= 0)
+    if context is not None:
+        mask &= delta < context
+    weights = torch.softmax(torch.where(mask[:, None], logits, NEG), dim=-1)
+    out = torch.einsum("bhtc,bchd->bthd", weights.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
 
 
 def decode_masks(
@@ -93,6 +125,38 @@ def attend_cached(
     out = torch.einsum("bhtc,bchd->bthd", wc.float(), cache_v.float())
     out = out + torch.einsum("bhts,bshd->bthd", ws.float(), v_new.float())
     return out.to(v_new.dtype)
+
+
+def mha_oneshot(
+    in_proj,
+    out_proj,
+    x: torch.Tensor,
+    *,
+    num_heads: int,
+    context: int | None,
+    max_period: float,
+    block: int = ONESHOT_BLOCK,
+) -> torch.Tensor:
+    """Causal self-attention over x [B, T, D] with no cache (voice encoding).
+    Positions are 0..T-1. With a context window the queries go in blocks of
+    `block` rows, each against keys [start - context + 1, end)."""
+    B, T, D = x.shape
+    q, k, v = qkv_project(x, in_proj, num_heads)
+    zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    rotr, roti = rope_tables(zero, T, D // num_heads, max_period, batch=B)
+    q, k = rotate(q, rotr, roti), rotate(k, rotr, roti)
+    pos = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
+    if context is None or T <= block:
+        out = attend(q, k, v, pos, pos, context)
+    else:
+        outs = []
+        for start in range(0, T, block):
+            end = min(start + block, T)
+            k0 = max(0, start - context + 1)
+            outs.append(attend(q[:, start:end], k[:, k0:end], v[:, k0:end],
+                               pos[:, start:end], pos[:, k0:end], context))
+        out = torch.cat(outs, dim=1)
+    return matmul_t(out.reshape(B, T, D), out_proj)
 
 
 def mha_step(

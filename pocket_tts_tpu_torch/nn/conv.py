@@ -61,6 +61,22 @@ class ConvTrState(NamedTuple):
     partial: torch.Tensor  # [B, C_out, K - S]
 
 
+def get_extra_padding_for_conv1d(
+    length: int, kernel_size: int, stride: int, padding_total: int = 0
+) -> int:
+    """Extra right-padding so the last conv window is full."""
+    n_frames = (length - kernel_size + padding_total) / stride + 1
+    ideal_length = (math.ceil(n_frames) - 1) * stride + (kernel_size - padding_total)
+    return ideal_length - length
+
+
+def pad_for_conv1d(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    extra = get_extra_padding_for_conv1d(x.shape[-1], kernel_size, stride)
+    if extra <= 0:
+        return x
+    return F.pad(x, (0, extra))
+
+
 def conv1d_raw(x: torch.Tensor, spec: ConvSpec, params: ConvParams) -> torch.Tensor:
     """VALID-padding grouped/dilated conv on [B, C, T]."""
     y = F.conv1d(x.to(params.weight.dtype), params.weight, stride=spec.stride,

@@ -1,12 +1,14 @@
-"""SEANet decoder as a flat program of typed ops over explicit state.
-Port of pocket_tts_tpu/nn/seanet.py (decoder side; the encoder comes with
-voice cloning).
+"""SEANet encoder and decoder as flat programs of typed ops over explicit
+state. Port of pocket_tts_tpu/nn/seanet.py.
 
-The program is a static op list (conv stem, per-ratio ELU + transposed
-upsample + residual blocks, ELU, final conv) applied to [B, C, T] tensors,
-with all streaming state in a parallel dict keyed by op index.
-`seanet_apply` is the plain PyTorch version of the program; on CUDA the
-decoder runs in the codec kernel (ops/codec_decode.py).
+A program is a static op list applied to [B, C, T] tensors, with all
+streaming state in a parallel dict keyed by op index. Decoder: conv stem,
+per ratio ELU + transposed upsample + residual blocks, ELU, final conv.
+Encoder (voice cloning): conv stem, per ratio (reversed) residual blocks +
+ELU + strided downsample, ELU, final conv. `seanet_apply` is the plain
+PyTorch version of a program: the encoder always runs through it (one shot;
+the JAX package leaves it to XLA), while on CUDA the decoder runs in the
+codec kernel (ops/codec_decode.py).
 """
 
 from __future__ import annotations
@@ -62,6 +64,26 @@ def _resblock_spec(dim: int, arch: SEANetArch, dilation: int) -> ResBlockSpec:
                  pad_mode=arch.pad_mode),
         ConvSpec(hidden, dim, 1, pad_mode=arch.pad_mode),
     ))
+
+
+def encoder_spec(arch: SEANetArch) -> SEANetSpec:
+    """conv stem -> per ratio (reversed): resblocks, ELU, strided downsample -> ELU, final conv."""
+    ops: list[tuple[str, object]] = []
+    mult = 1
+    ops.append(("conv", ConvSpec(arch.channels, mult * arch.n_filters, arch.kernel_size,
+                                 pad_mode=arch.pad_mode)))
+    for ratio in reversed(arch.ratios):
+        for j in range(arch.n_residual_layers):
+            ops.append(("resblock", _resblock_spec(mult * arch.n_filters, arch,
+                                                   arch.dilation_base**j)))
+        ops.append(("elu", None))
+        ops.append(("conv", ConvSpec(mult * arch.n_filters, mult * arch.n_filters * 2,
+                                     ratio * 2, stride=ratio, pad_mode=arch.pad_mode)))
+        mult *= 2
+    ops.append(("elu", None))
+    ops.append(("conv", ConvSpec(mult * arch.n_filters, arch.dimension,
+                                 arch.last_kernel_size, pad_mode=arch.pad_mode)))
+    return SEANetSpec(ops=tuple(ops))
 
 
 def decoder_spec(arch: SEANetArch) -> SEANetSpec:

@@ -13,7 +13,8 @@ Routing of a T=1 step over the linear cache (the FlowLM decode step):
    mixed quantization;
 3. any other case raises on CUDA (the CPU runs the plain loop).
 Each op is the CUDA kernel for a CUDA tensor and its plain twin for a CPU
-tensor. Prompt passes (T>1) and the windowed Mimi stack stay plain PyTorch,
+tensor. Prompt passes (T>1), the windowed Mimi stack and the one-shot pass
+of the Mimi encoder (`transformer_oneshot`) stay plain PyTorch,
 as they are plain XLA in the JAX package, apart from their products of at
 most 32 rows (nn/linear.py: the gemv op).
 
@@ -32,7 +33,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from pocket_tts_tpu_torch.nn.attention import decode_masks, mha_step
+from pocket_tts_tpu_torch.nn.attention import decode_masks, mha_oneshot, mha_step
 from pocket_tts_tpu_torch.nn.linear import matmul_t
 from pocket_tts_tpu_torch.nn.rope import rope_tables
 from pocket_tts_tpu_torch.ops.flash_decode import flash_decode_takes
@@ -147,6 +148,11 @@ def layer_step(
         p["in_proj"], p["out_proj"], h, cache_k, cache_v, rope_tabs, masks,
         num_heads=cfg.num_heads, att_len=att_len, flash_ctx=flash_ctx,
     )
+    return _residuals(x, attn_out, p), k_new, v_new
+
+
+def _residuals(x: torch.Tensor, attn_out: torch.Tensor, p: Params) -> torch.Tensor:
+    """The attention residual (LayerScaled), then the feed-forward block's."""
     if "ls1" in p:
         attn_out = attn_out * p["ls1"]
     x = x + attn_out
@@ -154,7 +160,21 @@ def layer_step(
     ff = matmul_t(F.gelu(matmul_t(h, p["w1"])), p["w2"])
     if "ls2" in p:
         ff = ff * p["ls2"]
-    return x + ff, k_new, v_new
+    return x + ff
+
+
+def transformer_oneshot(cfg: TransformerConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Full causal pass over x [B, T, D] with no KV cache, for one-shot uses
+    (voice-prompt encoding) where no state is carried."""
+    h = x
+    for layer in range(cfg.num_layers):
+        p = layer_params(params, layer)
+        attn_out = mha_oneshot(p["in_proj"], p["out_proj"],
+                               layer_norm(h, p["norm1_scale"], p["norm1_bias"]),
+                               num_heads=cfg.num_heads, context=cfg.context,
+                               max_period=cfg.max_period)
+        h = _residuals(h, attn_out, p)
+    return h
 
 
 def append_kv(

@@ -1,7 +1,15 @@
 """TTS pipeline orchestrator: the public TTSModel.
-Port of pocket_tts_tpu/pipeline/tts.py (`load_model`, `generate_audio`,
-`generate_audio_stream`, `generate_audio_batch(_from_texts)` and the pieces
-they run).
+Port of pocket_tts_tpu/pipeline/tts.py (`load_model`, the voice states,
+`generate_audio`, `generate_audio_stream(_from_tokens)`,
+`generate_audio_batch(_from_texts)` and the pieces they run).
+
+`load_model` reads the config's safetensors checkpoint (core/weights.py, the
+JAX package's key names, so one file loads in both packages), falling back
+to the checkpoint without the voice-cloning weights. A voice state is the
+FlowLM KV cache after one prompt pass over the speaker conditioning: from a
+wav (read, truncated, downmixed, resampled to 24 kHz), through the Mimi
+encoder (plain PyTorch, models/mimi.encode_to_latent) and the speaker
+projection, or imported from a `.safetensors` export.
 
 Per sentence chunk: the text prompt fills the KV cache (a T>1 pass), then
 frames are decoded in blocks of K (the `_block_size` ramp: single frames
@@ -55,7 +63,18 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch.config import CONFIGS_DIR, Config, load_config
+from pocket_tts_tpu_torch.core.bridge import to_torch
+from pocket_tts_tpu_torch.core.hub import (
+    PREDEFINED_VOICE_ORIGINS,
+    download_if_necessary,
+    get_predefined_voice,
+)
 from pocket_tts_tpu_torch.core.tree import tree_map
+from pocket_tts_tpu_torch.core.weights import (
+    flow_lm_params_from_sd,
+    load_safetensors,
+    mimi_params_from_sd,
+)
 from pocket_tts_tpu_torch.default_parameters import (
     DEFAULT_EOS_THRESHOLD,
     DEFAULT_LANGUAGE,
@@ -64,6 +83,7 @@ from pocket_tts_tpu_torch.default_parameters import (
     DEFAULT_TEMPERATURE,
     MAX_TOKEN_PER_CHUNK,
 )
+from pocket_tts_tpu_torch.io.audio import audio_read, convert_audio
 from pocket_tts_tpu_torch.models.flow_lm import (
     FlowLMSpecs,
     build_flow_lm_specs,
@@ -77,8 +97,9 @@ from pocket_tts_tpu_torch.models.mimi import (
     MimiSpecs,
     build_mimi_specs,
     decoder_step,
+    encode_to_latent,
     init_decoder_state,
-    init_mimi_decoder_params,
+    init_mimi_params,
     project_latent,
 )
 from pocket_tts_tpu_torch.nn.transformer import StackState
@@ -98,6 +119,12 @@ from pocket_tts_tpu_torch.text.sentencepiece import SentencePieceTokenizer
 from pocket_tts_tpu_torch.text.splitter import prepare_text_prompt, split_into_best_sentences
 
 logger = logging.getLogger(__name__)
+
+VOICE_CLONING_UNSUPPORTED = (
+    "Could not load the voice-cloning weights, but voice cloning was requested. "
+    f"Without them you can use the predefined voice catalog: "
+    f"{list(PREDEFINED_VOICE_ORIGINS)}."
+)
 
 # KV-capacity and prompt-length buckets, as in the JAX package
 CAPACITY_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
@@ -221,6 +248,7 @@ class TTSModel:
         config: Config,
         gen_params: GenerationParams,
         device: torch.device,
+        origin: Path | None = None,
     ):
         self.specs = specs
         self.mimi_specs = mimi_specs
@@ -235,7 +263,10 @@ class TTSModel:
         self.tokenizer = tokenizer
         self.config = config
         self.gen = gen_params
-        self.device = torch.device(device)
+        self._device = torch.device(device)
+        self.origin = origin
+        self.has_voice_cloning = True
+        self._voice_state_cache: dict[str, StackState] = {}
         self.pad_with_spaces_for_short_inputs = config.pad_with_spaces_for_short_inputs
         self.remove_semicolons = config.remove_semicolons
         self.model_recommended_frames_after_eos = config.model_recommended_frames_after_eos
@@ -245,6 +276,10 @@ class TTSModel:
     def _dtype(self) -> torch.dtype:
         """The activation and cache dtype (int8 weights keep it)."""
         return self.params["input_linear"].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     @property
     def sample_rate(self) -> int:
@@ -275,13 +310,16 @@ class TTSModel:
         param_dtype: str = "float32",
         device: str | torch.device | None = None,
     ) -> "TTSModel":
-        """Build a model from a language or a YAML config.
+        """Load a model from a language or a YAML config.
 
-        Loading checkpoints is not ported yet: `allow_random_init=True` builds
-        the model with random weights from a torch generator seeded with 0,
-        as the JAX package seeds its init with 0 (its shapes and
-        distributions, not its bits).
-        The tokenizer loads when the config names a local file.
+        The weights come from the config's `weights_path`, a safetensors
+        checkpoint (a local path, http(s) or hf://); when it cannot be read,
+        from `weights_path_without_voice_cloning`, and the model then cannot
+        clone a voice from audio (`has_voice_cloning` is False).
+        `allow_random_init=True` builds the model with random weights when
+        neither is reachable (or the config names none): a torch generator
+        seeded with 0, the JAX package's shapes and distributions, not its
+        bits. Without it a missing checkpoint raises.
         `param_dtype`: "float32" or "bfloat16" (serving); the flow head and
         all norm/softmax math stay f32 either way. `quantize_config`: which
         groups to make int8 (a named config such as "attention_ffn", the
@@ -307,21 +345,38 @@ class TTSModel:
         gen = GenerationParams(temp, lsd_decode_steps, noise_clamp, eos_threshold)
 
         tokenizer = None
-        tok_path = Path(cfg.flow_lm.lookup_table.tokenizer_path)
-        if tok_path.exists():
+        try:
+            tok_path = download_if_necessary(cfg.flow_lm.lookup_table.tokenizer_path)
             tokenizer = SentencePieceTokenizer(cfg.flow_lm.lookup_table.n_bins, tok_path)
-        else:
-            logger.warning("Tokenizer %s is not a local file; text APIs need token ids.",
-                           tok_path)
+        except Exception as e:  # offline or missing
+            logger.warning("Tokenizer unavailable (%s); text APIs need token ids.", e)
 
-        if not allow_random_init:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet; pass allow_random_init=True")
-        logger.warning("Checkpoint loading is not ported yet; using random init.")
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-        params = init_flow_lm_params(specs, g, torch.float32, dev)
-        mimi_params = init_mimi_decoder_params(mimi_specs, g, torch.float32, dev)
+        sd = None
+        has_voice_cloning = True
+        if cfg.weights_path is not None:
+            try:
+                sd = load_safetensors(download_if_necessary(cfg.weights_path))
+            except Exception:
+                try:
+                    sd = load_safetensors(
+                        download_if_necessary(cfg.weights_path_without_voice_cloning))
+                    has_voice_cloning = False
+                except Exception as e:
+                    if not allow_random_init:
+                        raise
+                    logger.warning("Weights unavailable (%s); using random init.", e)
+        if sd is not None:
+            params = to_torch(flow_lm_params_from_sd(specs.transformer, specs.flow, sd,
+                                                     prefix="flow_lm."), dev)
+            mimi_params = to_torch(mimi_params_from_sd(mimi_specs, sd, prefix="mimi."), dev)
+        elif allow_random_init:
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            params = init_flow_lm_params(specs, g, torch.float32, dev)
+            mimi_params = init_mimi_params(mimi_specs, g, torch.float32, dev)
+        else:
+            raise ValueError(f"{config_path} names no checkpoint (weights_path is null); "
+                             "pass allow_random_init=True for random weights")
         if dtype != torch.float32:  # every f32 leaf, as the JAX package casts
 
             def cast(t):
@@ -332,16 +387,79 @@ class TTSModel:
             groups = (RECOMMENDED_CONFIG if quantize_config is None
                       else resolve_config(quantize_config))
             params = quantize_flow_lm_int8(params, groups)
-        return cls(specs, mimi_specs, params, mimi_params, tokenizer, cfg, gen, dev)
+        model = cls(specs, mimi_specs, params, mimi_params, tokenizer, cfg, gen, dev,
+                    origin=config_path)
+        model.has_voice_cloning = has_voice_cloning
+        return model
 
     # ------------------------------------------------------------- voice state
 
+    def init_blank_state(self, batch_size: int = 1, capacity: int = 256) -> StackState:
+        return init_flow_lm_state(self.specs, batch_size, capacity, self._dtype, self.device)
+
+    def get_state_for_audio_prompt(self, audio_conditioning: str | Path | np.ndarray,
+                                   truncate: bool = False) -> StackState:
+        """The voice state from a `.safetensors` export, a predefined voice's
+        name, a wav (path or URL: the first 30 s when `truncate`, downmixed,
+        resampled to the model's rate) or an audio array (see
+        state_for_audio_array)."""
+        if (isinstance(audio_conditioning, (str, Path))
+                and str(audio_conditioning).endswith(".safetensors")):
+            return self.import_state(download_if_necessary(str(audio_conditioning)))
+        if isinstance(audio_conditioning, str) and audio_conditioning in PREDEFINED_VOICE_ORIGINS:
+            if self.origin is None or not Path(self.origin).is_relative_to(CONFIGS_DIR):
+                raise ValueError("Predefined voices need a model loaded from a language "
+                                 f"config; origin is {self.origin}")
+            return self.import_state(download_if_necessary(get_predefined_voice(
+                language=Path(self.origin).stem, name=audio_conditioning)))
+        if not self.has_voice_cloning and isinstance(audio_conditioning, (str, Path)):
+            raise ValueError(VOICE_CLONING_UNSUPPORTED)
+        if isinstance(audio_conditioning, (str, Path)):
+            audio, sr = audio_read(download_if_necessary(str(audio_conditioning)))
+            if truncate:
+                max_samples = int(30 * sr)
+                if audio.shape[-1] > max_samples:
+                    audio = audio[..., :max_samples]
+            audio = convert_audio(audio, sr, self.sample_rate, 1)
+        else:
+            audio = np.asarray(audio_conditioning, dtype=np.float32)
+        return self.state_for_audio_array(audio)
+
+    def state_for_audio_array(self, audio: np.ndarray) -> StackState:
+        """audio: [1, T] or [B, 1, T] float32 at the model's sample rate. The
+        Mimi encoder's latents (in the Mimi weights' dtype), projected into
+        backbone space in f32 by the speaker projection, then the prompt
+        pass of state_for_conditioning."""
+        audio = np.asarray(audio, dtype=np.float32)
+        if audio.ndim == 2:
+            audio = audio[None]
+        x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
+        latent = encode_to_latent(self.mimi_specs, self.mimi_params, x)  # [B, C, frames]
+        cond = torch.einsum("bct,dc->btd", latent.float(),
+                            self.params["speaker_proj_weight"].float())
+        return self.state_for_conditioning(cond)
+
+    def cached_get_state_for_audio_prompt(self, audio_conditioning: str,
+                                          truncate: bool = False) -> StackState:
+        """get_state_for_audio_prompt behind a true LRU(2): a hit moves the
+        entry to most recently used, so alternating between two voices never
+        evicts the hot one. Requests copy the state they are given, so an
+        entry stays as it was built."""
+        key = f"{audio_conditioning}|{truncate}"
+        cache = self._voice_state_cache
+        if key in cache:
+            cache[key] = cache.pop(key)  # move to the end: most recently used
+        else:
+            if len(cache) >= 2:
+                cache.pop(next(iter(cache)))  # evict the least recently used
+            cache[key] = self.get_state_for_audio_prompt(audio_conditioning, truncate)
+        return cache[key]
+
     def state_for_conditioning(self, cond: torch.Tensor) -> StackState:
-        """Voice state from conditioning already in backbone space [1, T, D]
+        """Voice state from conditioning already in backbone space [B, T, D]
         (the speaker projection of an encoded voice): one prompt pass into a
-        fresh cache. Encoding audio comes with voice cloning. As in the JAX
-        package the conditioning stays f32 through the prompt pass (the
-        cache takes the model dtype)."""
+        fresh cache. As in the JAX package the conditioning stays f32 through
+        the prompt pass (the cache takes the model dtype)."""
         cond = cond.to(self.device, torch.float32)
         B, prompt_len, D = cond.shape
         if self.specs.insert_bos_before_voice:
@@ -351,8 +469,7 @@ class TTSModel:
         pad_to = _bucket(prompt_len, PROMPT_BUCKETS)
         padded = torch.zeros((B, pad_to, D), dtype=cond.dtype, device=self.device)
         padded[:, :prompt_len] = cond
-        state = init_flow_lm_state(self.specs, B, _bucket(pad_to, CAPACITY_BUCKETS),
-                                   self._dtype, self.device)
+        state = self.init_blank_state(B, _bucket(pad_to, CAPACITY_BUCKETS))
         return prompt_step(self.specs, self.params, state, padded, true_len=prompt_len)
 
     def import_state(self, source: str | Path) -> StackState:
@@ -473,6 +590,25 @@ class TTSModel:
             )
             yield from self._generate_chunk(model_state, spec, noise_source,
                                             write_back=not copy_state)
+
+    def generate_audio_stream_from_tokens(
+        self,
+        model_state: StackState,
+        tokens: list[int],
+        frames_after_eos: int,
+        noise_source: Callable | None = None,
+        max_gen_len: int | None = None,
+        write_back: bool = False,
+        warm_start: bool = False,
+        seed: int | None = None,
+    ) -> Iterator[np.ndarray]:
+        """Single-chunk generation from token ids (B=1), with the emission of
+        generate_audio_stream. `write_back=True` is copy_state=False: the
+        caller's state receives the post-chunk state. `warm_start`: start
+        at 32-frame blocks (a chunk after the first of a long text)."""
+        spec = dict(tokens=tokens, frames_after_eos=frames_after_eos, warm_start=warm_start,
+                    seed=seed, max_gen_len=max_gen_len)
+        yield from self._generate_chunk(model_state, spec, noise_source, write_back=write_back)
 
     def _generate_chunk(self, model_state: StackState, spec: dict,
                         noise_source: Callable | None, write_back: bool) -> Iterator[np.ndarray]:

@@ -77,11 +77,13 @@ def test_att_len_stops_at_the_valid_prefix(att_len):
     cache, and slots at or above it are never read (NaN there stays out)."""
     args = list(make_case(3, 256, 4, 64, seed=8))
     args[5][:, 90:] = -1  # nothing valid from slot 90 on
-    want = flash_decode_ref(*(jnp.asarray(a) for a in args))
+    # copies (jnp.array), read back before the NaN writes below: jnp.asarray
+    # may alias the numpy buffers, and the reference may still be running
+    want = np.asarray(flash_decode_ref(*(jnp.array(a) for a in args)))
     args[1][:, att_len:] = np.nan
     args[2][:, att_len:] = np.nan
     got = run_plain(args, att_len=att_len)
-    np.testing.assert_allclose(host(got), np.asarray(want), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(host(got), want, rtol=TOL, atol=TOL)
 
 
 def test_bf16_rounds_weights_like_the_ref():

@@ -29,10 +29,12 @@ def models(tmp_path_factory):
     pm = ptts.TTSModel(build_flow_lm_specs(cfg), build_mimi_specs(cfg.mimi), port(jm.params),
                        port(jm.mimi_params), jm.tokenizer, cfg, ptts.GenerationParams(),
                        torch.device("cpu"))
-    audio = (np.random.default_rng(5).standard_normal((1, 1, 24000)) * 0.1).astype(np.float32)
     voice_file = tmp_path_factory.mktemp("voice") / "voice.safetensors"
-    export_model_state(jm.get_state_for_audio_prompt(audio), voice_file)
+    export_model_state(jm.get_state_for_audio_prompt(VOICE_AUDIO), voice_file)
     return jm, pm, voice_file
+
+
+VOICE_AUDIO = (np.random.default_rng(5).standard_normal((1, 1, 24000)) * 0.1).astype(np.float32)
 
 
 def frame_noise(n_frames: int, ldim: int, temp: float, seed: int = 0):
@@ -74,6 +76,25 @@ def test_voice_state_jax_export_port_import(models):
     for name in ("k", "v", "pos", "offset"):
         np.testing.assert_array_equal(host(getattr(got, name)), np.asarray(getattr(ref, name)))
     assert got.write_pos == int(ref.write_pos)
+
+
+def test_port_clones_the_fixture_voice_like_jax(models):
+    """The fixture's voice, built by the port's own get_state_for_audio_prompt
+    from the same audio: the JAX state (the reference the tests here use,
+    through its export) at the f32 bar, 1e-5."""
+    jm, pm, voice_file = models
+    got = pm.get_state_for_audio_prompt(VOICE_AUDIO)
+    ref = jm.get_state_for_audio_prompt(VOICE_AUDIO)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(host(getattr(got, name)), np.asarray(getattr(ref, name)),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(host(got.pos), np.asarray(ref.pos))
+    np.testing.assert_array_equal(host(got.offset), np.asarray(ref.offset))
+    assert got.write_pos == int(ref.write_pos)
+    n = int(ref.offset[0])
+    exported = import_model_state(voice_file)
+    np.testing.assert_allclose(host(got.k)[:, :, :n], np.asarray(exported.k)[:, :, :n],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("eos_threshold", [-4.0, 1e9], ids=["eos", "no-eos"])
