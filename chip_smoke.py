@@ -63,6 +63,16 @@ Phases, each of which makes the script exit non-zero when it fails:
      f32 state on the card against the CPU's, then 2 b1 requests and one
      streamed on the cloned voice with the route and the cached state
      checked, and a profile of one request;
+  5c. the serving surfaces over 5b's checkpoint, config and wavs: the CLI's
+     export-voice (the state held to 5b's at the bf16 bar) and generate from
+     the export, in process; `python -m pocket_tts_tpu_torch generate` in a
+     subprocess with no --device (the card by default); the HTTP server
+     (api/server.py on a ThreadingHTTPServer): /health, /, one url-encoded
+     POST /tts on the default voice, then two at once (an LRU hit and a
+     multipart voice_wav upload of the stereo wav), every WAV's length
+     against the steps run, /metrics (3 requests, no failure or retry),
+     the b1 route over the requests and the cached voice bit-unchanged;
+     each request's voice, first-chunk and total ms and audio-s/s printed;
   6. the 24-layer models: italian_24l b1 in bf16 (2 requests and one
      streamed, then a profile of one request and of a first chunk) and in
      int8 (2 requests), with the same checks;
@@ -1248,14 +1258,15 @@ def encoder_ms(model, wav: Path, label: str) -> float:
     return ms / secs
 
 
-def run_voice_cloning(tmp: Path) -> dict:
+def run_voice_cloning(tmp: Path) -> tuple[dict, dict]:
     """Checkpoint loading and voice cloning at english.yaml width: the port's
     own random f32 params (a seeded generator) written as a checkpoint,
     load_model from it (no allow_random_init) in bf16, two wav voices cloned
     through cached_get_state_for_audio_prompt, the first also in f32 on the
     card against the CPU, then b1 requests on the cloned voice with the
     route and the cached state checked. Returns the launches of the path
-    (the cloning and the requests)."""
+    (the cloning and the requests), and the config, the two wavs and voice
+    a's bf16 state for the surfaces phase."""
     import torch
 
     from pocket_tts_tpu_torch.config import CONFIGS_DIR, load_config
@@ -1346,7 +1357,235 @@ def run_voice_cloning(tmp: Path) -> dict:
     print(f"voice cloning: encoder {enc_bf16:.3f} ms (bf16) and {enc_f32:.3f} ms (f32) per "
           f"voice-second between events; phase {time.perf_counter() - t0:.1f} s "
           f"[{card_line()}]")
-    return {k: counts[k] + clone_counts[k] for k in counts}
+    reuse = {"config": config, "wav_a": voices["a"][0], "wav_b": voices["b"][0],
+             "state_a": voice}
+    return {k: counts[k] + clone_counts[k] for k in counts}, reuse
+
+
+# ------------------------------------------------------------ serving surfaces
+
+
+SURFACE_TEXTS = ["hello world. this is a test of the tts.",
+                 "the card runs fast and small speech.",
+                 "this is a test of the speech on the card.",
+                 "small and fast, the card runs the world."]
+
+
+def expected_frames(model, text: str) -> tuple[int, int]:
+    """(frames emitted, FlowLM decode steps) of a request with EOS off: each
+    sentence chunk emits every frame up to its length limit, decoded in the
+    pipeline's block ramp (the last block may run past the limit)."""
+    from pocket_tts_tpu_torch.default_parameters import MAX_TOKEN_PER_CHUNK
+    from pocket_tts_tpu_torch.pipeline.tts import _block_size
+    from pocket_tts_tpu_torch.text.splitter import split_into_best_sentences
+
+    frames = steps = 0
+    chunks = split_into_best_sentences(model.tokenizer, text, MAX_TOKEN_PER_CHUNK,
+                                       model.pad_with_spaces_for_short_inputs,
+                                       model.remove_semicolons)
+    for i, chunk in enumerate(chunks):
+        limit = model._estimate_max_gen_len(len(model._encode_text(chunk)))
+        n = 0
+        while n < limit:
+            n += _block_size(n, warm=i > 0)
+        frames, steps = frames + limit, steps + n
+    return frames, steps
+
+
+def check_wav(label: str, data: bytes, model, frames: int) -> None:
+    """A streamed 16-bit mono WAV at the model's rate whose PCM holds `frames`
+    frames and the writer's 0.2 s tail. The header claims an open-ended size,
+    so the length is judged from the bytes."""
+    import numpy as np
+
+    fmt = struct.unpack("<4sI4s4sIHHIIHH4sI", data[:44]) if len(data) >= 44 else None
+    if fmt is None or fmt[0] != b"RIFF" or fmt[2:4] != (b"WAVE", b"fmt ") or fmt[11] != b"data":
+        raise AssertionError(f"{label}: not a WAV ({data[:16]!r})")
+    channels, rate, bits = fmt[6], fmt[7], fmt[10]
+    want = frames * model.samples_per_frame + int(0.2 * model.sample_rate)
+    pcm = np.frombuffer(data[44:44 + 2 * ((len(data) - 44) // 2)], "<i2")
+    if (channels, rate, bits) != (1, model.sample_rate, 16) or (len(data) - 44) != 2 * want:
+        raise AssertionError(f"{label}: {channels} channels at {rate} Hz, {bits} bits, "
+                             f"{len(data) - 44} PCM bytes (want mono {model.sample_rate} Hz "
+                             f"16-bit, {2 * want} bytes for {frames} frames and the tail)")
+    if not np.abs(pcm[:frames * model.samples_per_frame]).max() > 0:
+        raise AssertionError(f"{label}: silent audio")
+
+
+def run_surfaces(tmp: Path, config: Path, wav_a: Path, wav_b: Path, state_a) -> dict:
+    """The serving surfaces on the card, over the voice-cloning phase's
+    checkpoint, config and wavs: the CLI's export-voice (the state against
+    the one that phase cloned from wav a) and generate from the export (in
+    process, the b1 route checked), `python -m pocket_tts_tpu_torch generate`
+    in a subprocess with no --device (the card is the default), then the
+    HTTP server on a ThreadingHTTPServer: /health and /, one url-encoded
+    POST /tts on the default voice (a clone into the LRU), then two at
+    once (the default voice again, an LRU hit, and a multipart voice_wav
+    upload of wav b), every body a WAV of the expected length, /metrics,
+    the route over the three requests and the cached state bit-unchanged.
+    Returns the launches of the path (the CLI in process and the server)."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from pocket_tts_tpu_torch.api import cli
+    from pocket_tts_tpu_torch.api.server import ServingMetrics, make_handler
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    t0 = time.perf_counter()
+    model = TTSModel.load_model(config=config, param_dtype="bfloat16", eos_threshold=1e9)
+    print(f"surfaces: tokenizer {type(model.tokenizer).__name__}")
+    L = model.specs.transformer.num_layers
+    launches = {k: 0 for k in kernel_modules()}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # the CLI in process: export-voice, then generate from the export
+    exported = tmp / "surfaces-voice-a.safetensors"
+    reset_counts()
+    if cli.main(["-q", "export-voice", str(wav_a), str(exported), "--config", str(config),
+                 "--dtype", "bfloat16"]) != 0:
+        raise AssertionError("surfaces: export-voice failed")
+    add(read_counts())
+    got = model.import_state(exported)
+    n = int(state_a.offset[0])
+    if not (torch.equal(got.offset, state_a.offset) and got.write_pos == n):
+        raise AssertionError(f"surfaces: exported voice has offset {got.offset.tolist()}, "
+                             f"the cloned one {state_a.offset.tolist()}")
+    errs = [rel_err(getattr(got, name)[:, :, :n], getattr(state_a, name)[:, :, :n])
+            for name in ("k", "v")]
+    rel = max(e[1] for e in errs)
+    print(f"surfaces: export-voice state of {n} positions vs the cloned state: "
+          f"max_abs_err={max(e[0] for e in errs):.3g} rel={rel:.3g} "
+          f"rel_tol={REL_TOL['bfloat16']}")
+    if rel > REL_TOL["bfloat16"]:
+        raise AssertionError(f"surfaces: exported state rel {rel:.3g}")
+
+    text = SURFACE_TEXTS[0]
+    frames, steps = expected_frames(model, text)
+    out = tmp / "surfaces-cli.wav"
+    gen_args = ["-q", "generate", text, "--config", str(config), "--voice", str(exported),
+                "--out", str(out), "--dtype", "bfloat16", "--seed", "0",
+                "--eos-threshold", "1e9"]
+    reset_counts()
+    t1 = time.perf_counter()
+    if cli.main(gen_args) != 0:
+        raise AssertionError("surfaces: generate failed")
+    counts = read_counts()
+    check_route("surfaces cli generate", counts, steps, L, b1=True, skinny=True)
+    check_wav("surfaces cli generate", out.read_bytes(), model, frames)
+    add(counts)
+    print(f"surfaces: cli generate {frames} frames ({steps} decode steps) in "
+          f"{time.perf_counter() - t1:.2f} s with the model load, launches {counts}")
+
+    # python -m, no --device: the card by default
+    out_m = tmp / "surfaces-main.wav"
+    t2 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch",
+                           *[str(out_m) if a == str(out) else a for a in gen_args]],
+                          cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"surfaces: python -m pocket_tts_tpu_torch exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    check_wav("surfaces python -m", out_m.read_bytes(), model, frames)
+    print(f"surfaces: python -m pocket_tts_tpu_torch generate (default device) rc 0 in "
+          f"{time.perf_counter() - t2:.2f} s")
+
+    # the server
+    class RecordingMetrics(ServingMetrics):
+        """ServingMetrics that also keeps each request's own numbers."""
+
+        def __init__(self):
+            super().__init__()
+            self.each: list[dict] = []
+
+        def record(self, **kw) -> None:
+            super().record(**kw)
+            with self._lock:
+                self.each.append(dict(self.last))
+
+    metrics = RecordingMetrics()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                make_handler(model, default_voice=str(wav_a), metrics=metrics))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            if r.status != 200 or json.loads(r.read()) != {"status": "ok"}:
+                raise AssertionError("surfaces: /health is not ok")
+        with urllib.request.urlopen(url + "/", timeout=60) as r:
+            if r.status != 200 or b"<html" not in r.read().lower():
+                raise AssertionError("surfaces: / is not the page")
+
+        def post(data: bytes, ctype: str) -> bytes:
+            req = urllib.request.Request(url + "/tts", data=data,
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if r.status != 200 or r.headers["Content-Type"] != "audio/wav":
+                    raise AssertionError(f"surfaces: /tts answered {r.status}")
+                return r.read()
+
+        def form(t: str) -> tuple[bytes, str]:
+            return ("text=" + t.replace(" ", "+")).encode(), \
+                "application/x-www-form-urlencoded"
+
+        boundary = "SURFACESBOUNDARY"
+        upload = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"text\"\r\n\r\n"
+                  f"{SURFACE_TEXTS[3]}\r\n--{boundary}\r\nContent-Disposition: form-data; "
+                  f"name=\"voice_wav\"; filename=\"{wav_b.name}\"\r\n"
+                  "Content-Type: audio/wav\r\n\r\n").encode() + wav_b.read_bytes() + \
+            f"\r\n--{boundary}--\r\n".encode()
+        requests = [("default voice (clone)", *form(SURFACE_TEXTS[1]), SURFACE_TEXTS[1]),
+                    ("default voice (LRU hit)", *form(SURFACE_TEXTS[2]), SURFACE_TEXTS[2]),
+                    ("voice_wav upload", upload, f"multipart/form-data; boundary={boundary}",
+                     SURFACE_TEXTS[3])]
+        reset_counts()
+        model.decode_steps = 0
+        bodies = [post(*requests[0][1:3])]
+        key = f"{wav_a}|True"
+        cached = model._voice_state_cache[key]
+        before = cached.clone()
+        with ThreadPoolExecutor(max_workers=2) as pool:  # two at once
+            futures = [pool.submit(post, *r[1:3]) for r in requests[1:]]
+            bodies += [f.result() for f in futures]
+        counts, served_steps = read_counts(), model.decode_steps
+        want_steps = 0
+        for (label, _, _, t), body in zip(requests, bodies):
+            f, s = expected_frames(model, t)
+            want_steps += s
+            check_wav(f"surfaces /tts {label}", body, model, f)
+        if served_steps != want_steps:
+            raise AssertionError(f"surfaces: {served_steps} decode steps, want {want_steps}")
+        check_route("surfaces server", counts, served_steps, L, b1=True, skinny=True)
+        add(counts)
+        if model._voice_state_cache.get(key) is not cached or not same_state(cached, before):
+            raise AssertionError("surfaces: the cached default-voice state changed")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            snap = json.loads(r.read())
+        if (snap["requests"], snap["failures"], snap["retries"]) != (3, 0, 0) or \
+                snap["last_request"] != metrics.each[-1]:
+            raise AssertionError(f"surfaces: /metrics {snap}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    for i, m in enumerate(metrics.each):
+        print(f"surfaces /tts request {i}: voice_ms {m['voice_ms']} first_chunk_ms "
+              f"{m['first_chunk_ms']} total_ms {m['total_ms']} audio_s {m['audio_s']} "
+              f"audio_s_per_s {m['audio_s_per_s']}")
+    print(f"surfaces: /metrics mean_voice_ms {snap['mean_voice_ms']} mean_first_chunk_ms "
+          f"{snap['mean_first_chunk_ms']} overall_audio_s_per_s "
+          f"{snap['overall_audio_s_per_s']}; server launches {counts} for {served_steps} "
+          f"decode steps")
+    print(f"surfaces: phase {time.perf_counter() - t0:.1f} s [{card_line()}]")
+    return launches
 
 
 # The probe's chain target: long enough that the slope's two walls dwarf the
@@ -1440,8 +1679,11 @@ def main() -> int:
             paths = {"b1 bf16": b1, **run_batched_paths(Path(d), model, voice)}
             del model, voice
             print(f"6-layer paths done at {time.perf_counter() - t_start:.1f} s")
-            paths["voice clone b1 bf16"] = run_voice_cloning(Path(d))
+            paths["voice clone b1 bf16"], cloned = run_voice_cloning(Path(d))
             print(f"voice cloning done at {time.perf_counter() - t_start:.1f} s")
+            paths["surfaces b1 bf16"] = run_surfaces(Path(d), **cloned)
+            del cloned
+            print(f"surfaces done at {time.perf_counter() - t_start:.1f} s")
             paths.update(run_24l_paths(Path(d)))
             print(f"24-layer paths done at {time.perf_counter() - t_start:.1f} s")
         paths["probe"] = run_probe_phase()

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pocket_tts_tpu_torch.core.typecheck import typechecked
 from pocket_tts_tpu_torch.nn.transformer import StackState
 
 
@@ -54,6 +55,7 @@ def state_to_reference_dict(state: StackState) -> dict[str, np.ndarray]:
     return out
 
 
+@typechecked(state=StackState, dest=(str, Path))
 def export_model_state(state: StackState, dest: str | Path) -> None:
     from safetensors.numpy import save_file
 

@@ -63,17 +63,19 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch.config import CONFIGS_DIR, Config, load_config
-from pocket_tts_tpu_torch.core.bridge import to_torch
+from pocket_tts_tpu_torch.core.bridge import to_numpy, to_torch
 from pocket_tts_tpu_torch.core.hub import (
     PREDEFINED_VOICE_ORIGINS,
     download_if_necessary,
     get_predefined_voice,
 )
 from pocket_tts_tpu_torch.core.tree import tree_map
+from pocket_tts_tpu_torch.core.typecheck import typechecked
 from pocket_tts_tpu_torch.core.weights import (
     flow_lm_params_from_sd,
     load_safetensors,
     mimi_params_from_sd,
+    save_combined_checkpoint,
 )
 from pocket_tts_tpu_torch.default_parameters import (
     DEFAULT_EOS_THRESHOLD,
@@ -115,7 +117,7 @@ from pocket_tts_tpu_torch.quant import (
     quantize_flow_lm_int8,
     resolve_config,
 )
-from pocket_tts_tpu_torch.text.sentencepiece import SentencePieceTokenizer
+from pocket_tts_tpu_torch.text.native import best_tokenizer
 from pocket_tts_tpu_torch.text.splitter import prepare_text_prompt, split_into_best_sentences
 
 logger = logging.getLogger(__name__)
@@ -296,6 +298,13 @@ class TTSModel:
     # ------------------------------------------------------------------ load
 
     @classmethod
+    @typechecked(
+        language=(str, None), config=(str, Path, None),
+        temp=(float, int), lsd_decode_steps=int,
+        noise_clamp=(float, int, None), eos_threshold=(float, int),
+        quantize=bool, quantize_config=(str, frozenset, set, None),
+        allow_random_init=bool, param_dtype=str, device=(str, torch.device, None),
+    )
     def load_model(
         cls,
         language: str | None = None,
@@ -324,7 +333,10 @@ class TTSModel:
         all norm/softmax math stay f32 either way. `quantize_config`: which
         groups to make int8 (a named config such as "attention_ffn", the
         default, or "all", or a set of groups); setting it implies
-        `quantize=True`. `device`: CUDA unless "cpu" is asked for."""
+        `quantize=True`. `device`: CUDA unless "cpu" is asked for.
+        With POCKET_TTS_SAVE_WEIGHTS=1 in the environment the weights, cast to
+        `param_dtype` and before int8 quantization, are written to
+        ./model.safetensors (as f32 values, the JAX package's key names)."""
         if config is not None and language is not None:
             raise ValueError("Cannot specify both config and language.")
         if config is None:
@@ -347,7 +359,7 @@ class TTSModel:
         tokenizer = None
         try:
             tok_path = download_if_necessary(cfg.flow_lm.lookup_table.tokenizer_path)
-            tokenizer = SentencePieceTokenizer(cfg.flow_lm.lookup_table.n_bins, tok_path)
+            tokenizer = best_tokenizer(cfg.flow_lm.lookup_table.n_bins, tok_path)
         except Exception as e:  # offline or missing
             logger.warning("Tokenizer unavailable (%s); text APIs need token ids.", e)
 
@@ -383,6 +395,10 @@ class TTSModel:
                 return t.to(dtype) if t.dtype == torch.float32 else t
 
             params, mimi_params = tree_map(cast, params), tree_map(cast, mimi_params)
+        if os.environ.get("POCKET_TTS_SAVE_WEIGHTS", "0") == "1":
+            save_combined_checkpoint("./model.safetensors", to_numpy(params), mimi_specs,
+                                     to_numpy(mimi_params))
+            logger.info("Saved model weights to ./model.safetensors")
         if quantize or quantize_config is not None:
             groups = (RECOMMENDED_CONFIG if quantize_config is None
                       else resolve_config(quantize_config))
@@ -397,6 +413,7 @@ class TTSModel:
     def init_blank_state(self, batch_size: int = 1, capacity: int = 256) -> StackState:
         return init_flow_lm_state(self.specs, batch_size, capacity, self._dtype, self.device)
 
+    @typechecked(audio_conditioning=(str, Path, np.ndarray), truncate=bool)
     def get_state_for_audio_prompt(self, audio_conditioning: str | Path | np.ndarray,
                                    truncate: bool = False) -> StackState:
         """The voice state from a `.safetensors` export, a predefined voice's
@@ -556,6 +573,10 @@ class TTSModel:
                 bad = z.abs() > c
         return z * std
 
+    @typechecked(
+        model_state=StackState, text_to_generate=str, max_tokens=int,
+        frames_after_eos=(int, None), copy_state=bool, seed=(int, None),
+    )
     def generate_audio_stream(
         self,
         model_state: StackState,
@@ -686,6 +707,10 @@ class TTSModel:
         true_len = torch.tensor(counts, dtype=torch.int32, device=self.device)
         return prompt_step(self.specs, self.params, lm_state, emb, true_len=true_len)
 
+    @typechecked(
+        model_state=StackState, text_to_generate=str, max_tokens=int,
+        frames_after_eos=(int, None), copy_state=bool, seed=(int, None),
+    )
     def generate_audio(
         self,
         model_state: StackState,

@@ -119,3 +119,28 @@ def tree_nbytes(tree) -> int:
 def model_memory_mb(*trees) -> float:
     """Model-weight memory in MB across parameter trees."""
     return sum(tree_nbytes(t) for t in trees) / 1e6
+
+
+def device_memory_mb(device: str | torch.device | None = None) -> float | None:
+    """Memory allocated by PyTorch on a CUDA device in MB (default: the
+    current one when there is a card); None for the CPU, whose allocator
+    keeps no such count."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = "cuda"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.memory_allocated(device) / 1e6
+
+
+def quantization_error(params: dict, qparams: dict) -> dict[str, float]:
+    """Max relative error per quantized transformer leaf (diagnostics)."""
+    errs = {}
+    for k, v in qparams["transformer"].items():
+        if isinstance(v, dict) and "q" in v:
+            w = params["transformer"][k].float()
+            deq = dequantize_weight(v)
+            errs[k] = float((deq - w).abs().max() / (w.abs().max() + 1e-12))
+    return errs

@@ -17,7 +17,7 @@ from pocket_tts_tpu_torch.ops.codec_decode import pack_decoder_params
 from pocket_tts_tpu_torch.pipeline import tts as ptts
 from pocket_tts_tpu_torch.pipeline.states import import_model_state as port_import
 from small_model import build_small_tts_model
-from torch_port import host, port
+from torch_port import frame_noise, host, port
 
 TEXT = "hello world test"
 
@@ -35,23 +35,6 @@ def models(tmp_path_factory):
 
 
 VOICE_AUDIO = (np.random.default_rng(5).standard_normal((1, 1, 24000)) * 0.1).astype(np.float32)
-
-
-def frame_noise(n_frames: int, ldim: int, temp: float, seed: int = 0):
-    """One pre-drawn [frames, 1, ldim] stream served K frames at a time,
-    whatever shape each side asks for."""
-    noise = np.random.default_rng(seed).standard_normal((n_frames, 1, ldim)).astype(np.float32)
-    noise *= temp ** 0.5
-    served = 0
-
-    def source(shape):
-        nonlocal served
-        k = 1 if len(shape) == 2 else shape[0]
-        out = noise[served:served + k].reshape(shape)
-        served += k
-        return out
-
-    return source
 
 
 def eos_steps(monkeypatch):

@@ -29,7 +29,7 @@ from pocket_tts_tpu_torch.nn import attention as patt
 from pocket_tts_tpu_torch.nn import seanet as pseanet
 from pocket_tts_tpu_torch.nn import transformer as ptr
 from pocket_tts_tpu_torch.pipeline import tts as ptts
-from torch_port import host, write_small_checkpoint, write_small_config
+from torch_port import frame_noise, host, write_small_checkpoint, write_small_config
 
 RNG = np.random.default_rng(77)
 TOL = 1e-5
@@ -204,22 +204,6 @@ def test_cached_voice_states_are_lru2(models, monkeypatch):
                               ("a", True)]
     assert list(pm._voice_state_cache) == list(jm._voice_state_cache) == ["a|False",
                                                                           "a|True"]
-
-
-def frame_noise(n_frames, ldim, temp, seed=0):
-    """One pre-drawn [frames, 1, ldim] stream served K frames at a time."""
-    noise = np.random.default_rng(seed).standard_normal((n_frames, 1, ldim)).astype(np.float32)
-    noise *= temp ** 0.5
-    served = 0
-
-    def source(shape):
-        nonlocal served
-        k = 1 if len(shape) == 2 else shape[0]
-        out = noise[served:served + k].reshape(shape)
-        served += k
-        return out
-
-    return source
 
 
 def test_cloned_voice_request_matches_jax(models):

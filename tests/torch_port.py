@@ -23,6 +23,22 @@ def host(x):
     return np.asarray(x, np.float32)
 
 
+def frame_noise(n_frames: int, ldim: int, temp: float, seed: int = 0):
+    """One pre-drawn [frames, 1, ldim] stream served K frames at a time,
+    whatever shape each side asks for."""
+    noise = np.random.default_rng(seed).standard_normal((n_frames, 1, ldim)).astype(np.float32)
+    noise *= temp ** 0.5
+    served = 0
+
+    def source(shape):
+        nonlocal served
+        k = 1 if len(shape) == 2 else shape[0]
+        out = noise[served:served + k].reshape(shape)
+        served += k
+        return out
+
+    return source
+
 
 def write_small_checkpoint(tmp_path, seed: int = 0):
     """The test suite's small model (tests/small_model.small_config, with the
