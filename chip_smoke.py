@@ -29,15 +29,17 @@ Phases, each of which makes the script exit non-zero when it fails:
      (C=4096, ~4,000 slots), each with one all-dead row, timed as device time
      by graph replay over inputs cold in L2 beside a host loop, SDPA timed
      the same way, with each case's splits (the cluster's size), body, share
-     of the bound and the parent kernel's time; gemv at 1, 8 and 32 rows for
-     every product the paths send it (GEMV_GROUPS): the FlowLM's four, plain
-     and int8, the flow head's as f32 activations over bf16 weights, and the
-     Mimi decoder transformer's four, the kernel and torch.matmul timed as
-     device time by CUDA-graph replay (graph_ms), over weights cold in L2 and
-     warm; gemv_stack at the int8 GEMV probe's size (48 x [4096, 1024] int8,
-     -128 and 127 included) at 1, 3, 8, 32 and 48 rows, timed at 1, 8 and 32
-     rows as device time by graph replay (the 201 MB weight is cold in L2 by
-     size) with its share of the bound and its effective GB/s;
+     of the bound and the parent kernel's time, and at B=1 (FD_B1_CASES: a
+     b1 step under a mesh, 16 heads and TP=2's 8); gemv at 1, 8 and 32 rows for
+     every product the paths send it (GEMV_GROUPS): the FlowLM's four, whole
+     and at one rank's TP=2 shard shapes, plain and int8, the flow head's as
+     f32 activations over bf16 weights, and the Mimi decoder transformer's
+     four, the kernel and torch.matmul timed as device time by CUDA-graph
+     replay (graph_ms), over weights cold in L2 and warm; gemv_stack at the
+     int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
+     at 1, 3, 8, 32 and 48 rows, timed at 1, 8 and 32 rows as device time
+     by graph replay (the 201 MB weight is cold in L2 by size) with its
+     share of the bound and its effective GB/s;
   4. reference: a small f32 model's generate_audio (B=1) and
      generate_audio_batch (B=4, ragged voices and prompts) on the card
      (kernels, gemv included: the small FlowLM is 128 wide) against the same
@@ -73,6 +75,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      against the steps run, /metrics (3 requests, no failure or retry),
      the b1 route over the requests and the cached voice bit-unchanged;
      each request's voice, first-chunk and total ms and audio-s/s printed;
+  5d. sharded serving over 5b's checkpoint, bf16: `python -m
+     pocket_tts_tpu_torch.parallel.launch --processes 1` (NCCL, world 1; the
+     report must say mesh_healthy), then in this process a 1 x 1 mesh with
+     tensor_parallel=True on a b1 request (16 frames, a cloned voice) and a
+     B=4 batch, each held to the unsharded model on the same card at the
+     bf16 bar (the b1 route changes from the decode stack to the layer loop:
+     decode_stack 0 launches, flash_decode at B=1, gemv); with two cards or
+     more, 2 DP processes and TP=2 (`--tp-worker` ranks) against the
+     1-process audio;
+  5e. the flow-matching training step on the english.yaml FlowLM in f32
+     (B=8, 64 latent frames, 16 tokens): step 0's loss and gradients on the
+     card against the CPU at the f32 bar, then 20 Adam steps (the loss
+     finite and lower at the end), ms per step between CUDA events, peak
+     memory, and no hand-kernel launch;
   6. the 24-layer models: italian_24l b1 in bf16 (2 requests and one
      streamed, then a profile of one request and of a first chunk) and in
      int8 (2 requests), with the same checks;
@@ -355,12 +371,23 @@ def check_decode_stack(report: dict) -> None:
             flops = L * (2 * (4 * D * D + 2 * F * D) + 4 * (valid + 1) * D)
             b_ms, b_by = bound(nbytes, flops, dtype_name)
             if C == 256:  # one persistent launch per call, in every kind and depth
-                kernels = profile(f"decode_stack {label} C=256 x20",
-                                  lambda: [kernel() for _ in range(20)], top=4)
+                # Each call also copies x once (Memcpy DtoD): a trace with fewer
+                # than 20 copies lost records (CUPTI has dropped a window's first
+                # calls) and is taken again, at most 3 times in all.
+                for attempt in range(3):
+                    kernels = profile(f"decode_stack {label} C=256 x20",
+                                      lambda: [kernel() for _ in range(20)], top=4)
+                    copies = sum(n for k, n, _ in kernels if "Memcpy DtoD" in k)
+                    if copies == 20:
+                        break
+                    print(f"decode_stack {label}: the trace holds {copies} of 20 calls' "
+                          "copies; profiled again")
                 ours = {k: n for k, n, _ in kernels
                         if not any(t in k for t in ("at::native", "Memcpy", "Memset"))}
-                if sum(ours.values()) != 20 or not all("stack_kernel" in k for k in ours):
-                    raise AssertionError(f"decode_stack {label}: kernels per 20 calls {ours}")
+                if (copies != 20 or sum(ours.values()) != 20
+                        or not all("stack_kernel" in k for k in ours)):
+                    raise AssertionError(f"decode_stack {label}: kernels per 20 calls {ours} "
+                                         f"({copies} copies traced)")
             print(f"decode_stack {label} C={C}: max_abs_err={err:.3g} rel={rel:.3g} "
                   f"row_err={row_err:.3g} row_rel={row_rel:.3g} rel_tol={tol} "
                   f"kernel_ms={ms:.4f} (graph replay; host loop {host_ms:.4f}) "
@@ -534,7 +561,7 @@ def check_codec(report: dict) -> None:
 
 def flash_inputs(g, B, C, H, Dh, dtype, att, fill="ramp"):
     """q, caches, k_new / v_new, pos, offset for one flash-decode call. Row 0
-    is all dead. "ramp": row b fills a prefix of 8 + (att - 8) b / (B - 1)
+    is all dead unless B=1. "ramp": row b fills a prefix of 8 + (att - 8) b / (B - 1)
     slots, every 7th slot dead and its last 3 slots past the offset (half the
     attended slots dead on average); "serving": row b fills att - (b % 8)
     slots, as the batched paths fill their rows (a voice, the prompt, then
@@ -549,7 +576,7 @@ def flash_inputs(g, B, C, H, Dh, dtype, att, fill="ramp"):
     packed = torch.randn((B, 3, H, Dh), generator=g, device="cuda").to(dtype)
     pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
     offset = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    for b in range(1, B):
+    for b in range(1 if B > 1 else 0, B):
         p = torch.arange(C, dtype=torch.int32, device="cuda")
         if fill == "ramp":
             n = min(att, 8 + (att - 8) * b // (B - 1))
@@ -570,6 +597,9 @@ def flash_inputs(g, B, C, H, Dh, dtype, att, fill="ramp"):
 FD_CASES = ((8, 256, 200, "ramp"), (32, 256, 200, "ramp"), (8, 1024, 900, "ramp"),
             (32, 1024, 900, "ramp"), (32, 256, 200, "serving"), (128, 256, 200, "serving"),
             (8, 4096, 4064, "serving"))
+# B=1 cases (B, C, att_len, heads), "serving" fill: a b1 step under a mesh
+# (the decode stack refused) with all 16 heads (TP degree 1) or 8 (TP=2)
+FD_B1_CASES = ((1, 256, 200, 16), (1, 1024, 900, 16), (1, 256, 200, 8))
 # Timed over input sets of at least this many cache bytes in all (4x the
 # H100's 50 MB L2), so every call reads its cache rows from HBM, as the
 # serving paths do (6 layers of caches outgrow the L2 at B=32).
@@ -640,13 +670,16 @@ def check_flash_decode(report: dict) -> None:
     def sdpa(s):
         return F.scaled_dot_product_attention(s[0], s[1], s[2], attn_mask=s[3])
 
-    H, Dh = 16, 64
+    Dh = 64
     g = torch.Generator(device="cuda")
+    cases = [(*c, 16) for c in FD_CASES] + [(B, C, att, "serving", H)
+                                             for B, C, att, H in FD_B1_CASES]
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         tol = REL_TOL[dtype_name]
         g.manual_seed(5)
-        for B, C, att, fill in FD_CASES:
+        for B, C, att, fill, H in cases:
             label = f"flash_decode {dtype_name} B={B} C={C} att_len={att} {fill}"
+            label += f" H={H}" if H != 16 else ""
             args = flash_inputs(g, B, C, H, Dh, dtype, att, fill)
             out_k = fd._flash_decode_cuda(*args, att_len=att)
             out_p = fd.flash_decode_plain(*args, att_len=att)
@@ -654,7 +687,7 @@ def check_flash_decode(report: dict) -> None:
             if out_k.shape != (B, H, Dh) or not torch.isfinite(out_k.float()).all():
                 raise AssertionError(f"{label}: bad output")
             err, rel = rel_err(out_k, out_p)
-            _, dead_rel = rel_err(out_k[0], args[4][0])  # all dead: the new value alone
+            dead_rel = 0.0 if B == 1 else rel_err(out_k[0], args[4][0])[1]  # all dead
             if rel > tol or dead_rel > tol:
                 raise AssertionError(f"{label}: max |kernel - plain| / max |plain| {rel:.3g} "
                                      f"(all-dead row {dead_rel:.3g}) > {tol}")
@@ -662,14 +695,15 @@ def check_flash_decode(report: dict) -> None:
             # device time over inputs cold in L2; the host loop reuses one set
             cache_bytes = 2 * args[1].numel() * args[1].element_size()
             sets = flash_sets(args, max(2, math.ceil(FD_COLD_BYTES / cache_bytes)))
-            ms = graph_ms([lambda a=a: fd._flash_decode_cuda(*a, att_len=att) for a in sets])
+            ms = graph_ms([lambda a=a: fd._flash_decode_cuda(*a, att_len=att) for a in sets],
+                          n=max(40, len(sets)))
             host_ms = cuda_ms(lambda: fd._flash_decode_cuda(*args, att_len=att))
             plain_ms = cuda_ms(lambda: fd.flash_decode_plain(*args, att_len=att), iters=10)
             # library: SDPA of the same q over [cache || new] with the same
             # boolean mask, its inputs built outside the timed calls
             lib_sets = [flash_sdpa_inputs(a, att) for a in sets]
             lib_err, _ = rel_err(sdpa(lib_sets[0])[:, :, 0], out_p)
-            lib_ms = graph_ms([lambda s=s: sdpa(s) for s in lib_sets])
+            lib_ms = graph_ms([lambda s=s: sdpa(s) for s in lib_sets], n=max(40, len(sets)))
             lib_host_ms = cuda_ms(lambda: sdpa(lib_sets[0]))
             del sets, lib_sets
             b_ms, b_by, nbytes, n_valid = flash_bound(args, att, dtype_name)
@@ -682,7 +716,7 @@ def check_flash_decode(report: dict) -> None:
                   f"{lib_host_ms:.4f}; err {lib_err:.3g}) bound_ms={b_ms:.4f} ({b_by}, "
                   f"{nbytes / 1e6:.2f} MB, {n_valid} valid slots, "
                   f"{100 * b_ms / ms:.1f}% of the bound)")
-            report[("flash_decode", dtype_name, B, C, fill)] = dict(
+            report[("flash_decode", dtype_name, B, C, fill) + ((H,) if H != 16 else ())] = dict(
                 max_abs_err=err, ms=ms, cuda_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, library_cuda_ms=lib_host_ms,
                 splits=plan["splits"], body=plan["body"])
@@ -690,13 +724,16 @@ def check_flash_decode(report: dict) -> None:
 
 # Every product the smoke's paths send to the gemv kernel: [O, I] by name,
 # and the (x dtype, W dtype, int8) kinds it comes in. The FlowLM's four in
-# bf16 and int8 (the bf16 and attention_ffn models at B=32) and in f32; the
+# bf16 and int8 (the bf16 and attention_ffn models at B=32) and in f32, whole
+# and as one rank's shard under TP=2 (in_proj and w1 split on output
+# features, out_proj and w2 on input features: the parallel phase); the
 # flow head's aligned linears as f32 activations over bf16 weights (every
 # bf16 path) and in f32; the Mimi decoder transformer's four (d=512, F=2048)
 # in bf16 and f32. Each at 1, 8 and 32 rows (b1, the block ramp, B=32).
 GEMV_GROUPS = [
     ({"in_proj": (3072, 1024), "out_proj": (1024, 1024), "w1": (4096, 1024),
-      "w2": (1024, 4096)},
+      "w2": (1024, 4096), "in_proj_tp2": (1536, 1024), "out_proj_tp2": (1024, 512),
+      "w1_tp2": (2048, 1024), "w2_tp2": (1024, 2048)},
      [("bfloat16", "bfloat16", False), ("float32", "float32", False),
       ("bfloat16", "bfloat16", True), ("float32", "float32", True)]),
     ({"flow_cond_embed": (512, 1024), "flow_time_l0": (512, 256), "flow_mlp": (512, 512),
@@ -1588,6 +1625,293 @@ def run_surfaces(tmp: Path, config: Path, wav_a: Path, wav_b: Path, state_a) -> 
     return launches
 
 
+# ------------------------------------------------------------ sharded serving
+
+
+PARALLEL_TOKENS = [[3, 7, 2, 9, 4, 8], [9, 4, 8, 1], [5, 5, 2, 7, 1, 6, 3], [2, 9, 6]]
+PARALLEL_FRAMES = 16  # the b1 request's length limit: blocks of 1, 1, 8 and 8 frames
+
+
+def launch_report(args: list[str], label: str) -> dict:
+    """`python -m pocket_tts_tpu_torch.parallel.launch` in a subprocess (its
+    workers on the card over NCCL): the report line it prints last."""
+    from pocket_tts_tpu_torch.parallel.launch import MULTIHOST_TAG
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch.parallel.launch", *args,
+                          "--retries", "0", "--timeout", "300"],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=360)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith(MULTIHOST_TAG)]
+    if out.returncode or not lines:
+        raise AssertionError(f"{label}: rc {out.returncode}\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    report = json.loads(lines[-1][len(MULTIHOST_TAG):])
+    print(f"{label}: {report} in {time.perf_counter() - t0:.1f} s with the process start "
+          f"[{card_line()}]")
+    if not report["mesh_healthy"] or not all(n > 0 for n in report["row_samples"]):
+        raise AssertionError(f"{label}: unhealthy mesh or empty rows: {report}")
+    return report
+
+
+def hold_audio(label: str, got: list, want: list) -> float:
+    """Rows of audio held to the bf16 bar: max |got - want| <= REL_TOL x
+    max |want| over all rows, lengths equal. Returns the relative error."""
+    import numpy as np
+
+    if [a.shape for a in got] != [a.shape for a in want] or want[0].size == 0:
+        raise AssertionError(f"{label}: lengths {[a.shape for a in got]} vs "
+                             f"{[a.shape for a in want]}")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    rel = err / max(float(np.abs(b).max()) for b in want)
+    print(f"{label}: {len(got)} rows of {[a.size for a in got]} samples, max_abs_err={err:.3g} "
+          f"rel={rel:.3g} rel_tol={REL_TOL['bfloat16']}")
+    if not (all(np.isfinite(a).all() for a in got) and rel <= REL_TOL["bfloat16"]):
+        raise AssertionError(f"{label}: rel {rel:.3g} > {REL_TOL['bfloat16']}")
+    return rel
+
+
+def tp_stream(model, wav: Path, noise) -> "np.ndarray":
+    """A b1 request from a voice cloned from `wav`: PARALLEL_TOKENS[0] for
+    PARALLEL_FRAMES frames, EOS off, frame-indexed noise."""
+    import numpy as np
+
+    voice = model.get_state_for_audio_prompt(str(wav))
+    return np.concatenate(list(model.generate_audio_stream_from_tokens(
+        voice, PARALLEL_TOKENS[0], 2, noise_source=frame_source(noise),
+        max_gen_len=PARALLEL_FRAMES)))
+
+
+def parallel_noise(model, B: int, seed: int):
+    import numpy as np
+
+    noise = np.random.default_rng(seed).standard_normal((200, B, model.specs.ldim))
+    return (noise * model.gen.temp ** 0.5).astype(np.float32)
+
+
+def tp_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --tp-worker RANK WORLD PORT CONFIG WAV OUT`: one rank of
+    a 1 x WORLD tensor-parallel job on cuda:RANK; rank 0 saves the b1
+    request's audio to OUT (.npy)."""
+    import numpy as np
+    import torch
+
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.parallel.multihost import assert_mesh_healthy, initialize_multihost
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    rank, world, port = map(int, argv[:3])
+    config, wav, out = argv[3:6]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, device=f"cuda:{rank}")
+    mesh = make_mesh(1, world)
+    model = TTSModel.load_model(config=config, param_dtype="bfloat16", eos_threshold=1e9,
+                                device=f"cuda:{rank}")
+    model.shard_for_mesh(mesh, tensor_parallel=True)
+    audio = tp_stream(model, Path(wav), parallel_noise(model, 1, 71))
+    if not assert_mesh_healthy(mesh):
+        raise RuntimeError("mesh heartbeat failed")
+    if rank == 0:
+        np.save(out, audio)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_tp2(config: Path, wav: Path, tmp: Path):
+    """Two ranks of `tp_worker` on cuda:0 and cuda:1: rank 0's audio."""
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp / "tp2.npy"
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-worker",
+                               str(r), "2", str(port), str(config), str(wav), str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError("TP=2 workers failed:\n" + "\n".join(logs))
+    return np.load(out)
+
+
+def run_parallel(tmp: Path, config: Path, wav_a: Path) -> dict:
+    """Sharded serving at english.yaml width in bf16 on the voice-cloning
+    checkpoint: the launch driver with one process on the card (NCCL, world
+    1), then in this process a 1 x 1 mesh with tensor_parallel=True (the
+    decode stack refused: the layer loop with flash decode at B=1 and the
+    gemv op) on a b1 request and on a B=4 batch, each held to the unsharded
+    model on the same card at the bf16 bar, with its route checked. With two
+    cards or more, also 2 DP processes and TP=2, each against the 1-process
+    audio. Returns the sharded runs' launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.parallel.multihost import assert_mesh_healthy
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    t0 = time.perf_counter()
+    args = ["--config", str(config), "--dtype", "bfloat16", "--utterances", "4"]
+    one = launch_report(["--processes", "1", *args], "parallel launch 1 process")
+
+    mesh = make_mesh(1, 1)
+    if not assert_mesh_healthy(mesh):
+        raise AssertionError("parallel: the 1 x 1 mesh heartbeat failed")
+    ref = TTSModel.load_model(config=config, param_dtype="bfloat16", eos_threshold=1e9)
+    tp = TTSModel.load_model(config=config, param_dtype="bfloat16", eos_threshold=1e9)
+    tp.shard_for_mesh(mesh, tensor_parallel=True)
+    L = tp.specs.transformer.num_layers
+    noise1 = parallel_noise(ref, 1, 71)
+    want1 = tp_stream(ref, wav_a, noise1)
+    reset_counts()
+    tp.decode_steps = 0
+    got1 = tp_stream(tp, wav_a, noise1)
+    counts, steps = read_counts(), tp.decode_steps
+    check_route("parallel TP 1x1 b1", counts, steps, L, b1=False, skinny=True)
+    hold_audio("parallel TP 1x1 b1 vs unsharded (decode stack)", [got1], [want1])
+
+    voices_ref = [ref.get_state_for_audio_prompt(str(wav_a))] * 4
+    voices_tp = [tp.get_state_for_audio_prompt(str(wav_a))] * 4
+    noise4 = parallel_noise(ref, 4, 72)
+    want4 = ref.generate_audio_batch(voices_ref, PARALLEL_TOKENS, frames_after_eos=2,
+                                     noise_source=frame_source(noise4))
+    reset_counts()
+    tp.decode_steps = 0
+    got4 = tp.generate_audio_batch(voices_tp, PARALLEL_TOKENS, frames_after_eos=2,
+                                   noise_source=frame_source(noise4))
+    counts4, steps4 = read_counts(), tp.decode_steps
+    check_route("parallel TP 1x1 B=4", counts4, steps4, L, b1=False, skinny=True)
+    hold_audio("parallel TP 1x1 B=4 vs unsharded", got4, want4)
+    launches = {k: counts[k] + counts4[k] for k in counts}
+    print(f"parallel TP 1x1: b1 {steps} steps, launches {counts}; B=4 {steps4} steps, "
+          f"launches {counts4} [{card_line()}]")
+    dist.destroy_process_group()
+    del ref, tp
+
+    ran = ["launch 1 process", "TP 1x1 b1", "TP 1x1 B=4"]
+    if torch.cuda.device_count() >= 2:
+        two = launch_report(["--processes", "2", *args], "parallel launch 2 processes")
+        rel = abs(two["audio_checksum"] - one["audio_checksum"]) / one["audio_checksum"]
+        print(f"parallel DP 2 processes vs 1: row samples {two['row_samples']} vs "
+              f"{one['row_samples']}, checksum rel {rel:.3g}")
+        if two["row_samples"] != one["row_samples"] or rel > REL_TOL["bfloat16"]:
+            raise AssertionError("parallel: 2 DP processes differ from 1")
+        hold_audio("parallel TP=2 b1 vs TP 1x1", [run_tp2(config, wav_a, tmp)], [got1])
+        ran += ["launch 2 processes (DP)", "TP=2 b1"]
+    print(f"parallel: ran {ran} on {torch.cuda.device_count()} card(s); phase "
+          f"{time.perf_counter() - t0:.1f} s [{card_line()}]")
+    return launches
+
+
+# ------------------------------------------------------------------ training
+
+
+TRAIN_SHAPE = (8, 64, 16)  # batch rows, latent frames, text tokens
+TRAIN_STEPS = 20
+TRAIN_LR = 3e-4
+
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_named_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def run_training() -> dict:
+    """The flow-matching training step on the english.yaml FlowLM in f32:
+    step 0's loss and gradients on the card against the CPU (the same params,
+    batch and injected t and noise) at REL_TOL["float32"] of each leaf's
+    largest value, then TRAIN_STEPS Adam steps on the card (the loss finite
+    and lower at the end, no hand kernel launched), with the ms per step
+    between CUDA events and the peak memory allocated above what earlier
+    phases still hold (params, gradients, Adam moments, activations)."""
+    import torch
+
+    from pocket_tts_tpu_torch.config import CONFIGS_DIR, load_config
+    from pocket_tts_tpu_torch.core.tree import tree_map
+    from pocket_tts_tpu_torch.models.flow_lm import build_flow_lm_specs, init_flow_lm_params
+    from pocket_tts_tpu_torch.parallel.training import flow_matching_loss, make_train_step
+
+    t0 = time.perf_counter()
+    specs = build_flow_lm_specs(load_config(CONFIGS_DIR / "english.yaml"))
+    B, S, Tt = TRAIN_SHAPE
+    g = torch.Generator().manual_seed(41)
+    params = init_flow_lm_params(specs, g, torch.float32, "cpu")
+    eos = torch.zeros((B, S))
+    eos[:, -1] = 1.0
+    batch = {"tokens": torch.randint(0, specs.n_bins, (B, Tt), generator=g),
+             "latents": torch.randn((B, S, specs.ldim), generator=g), "eos_labels": eos}
+    t = torch.rand((B, S, 1), generator=g)
+    noise = torch.randn((B, S, specs.ldim), generator=g)
+
+    cpu = tree_map(lambda x: x.clone().requires_grad_(), params)
+    cpu_loss = flow_matching_loss(specs, cpu, batch, t=t, noise=noise)
+    cpu_loss.backward()
+    cpu_grads = {k: v.grad for k, v in _named_leaves(cpu).items()}
+    cpu_s = time.perf_counter() - t0
+
+    def card(x):
+        return x.cuda()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cbatch, ct, cnoise = tree_map(card, batch), card(t), card(noise)
+    init, step = make_train_step(specs, TRAIN_LR)
+    state = init(tree_map(card, params))
+    reset_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        (state, loss), ms = event_ms(lambda: step(state, cbatch, t=ct, noise=cnoise))
+        losses.append(float(loss))
+        times.append(ms)
+        if i == 0:
+            rel = abs(losses[0] - float(cpu_loss)) / abs(float(cpu_loss))
+            worst, worst_rel = "", 0.0
+            for name, leaf in _named_leaves(state.params).items():
+                want, got = cpu_grads[name], leaf.grad
+                if want is None or got is None:  # a leaf the loss does not reach
+                    if want is not None or got is not None:
+                        raise AssertionError(f"training: {name} has a gradient on one side")
+                    continue
+                r = float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                if r > worst_rel:
+                    worst, worst_rel = name, r
+            print(f"training step 0 card vs cpu: loss {losses[0]:.6f} vs {float(cpu_loss):.6f} "
+                  f"(rel {rel:.3g}), gradients worst rel {worst_rel:.3g} ({worst}) over "
+                  f"{len(cpu_grads)} leaves, rel_tol={REL_TOL['float32']}")
+            if rel > REL_TOL["float32"] or worst_rel > REL_TOL["float32"]:
+                raise AssertionError(f"training: step 0 card vs cpu loss rel {rel:.3g}, "
+                                     f"gradient {worst} rel {worst_rel:.3g}")
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    ms = sorted(times[2:])[len(times[2:]) // 2]
+    print(f"training f32 english.yaml FlowLM (B={B}, S={S}, {Tt} tokens, Adam lr {TRAIN_LR}): "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f} in {TRAIN_STEPS} steps, {ms:.2f} ms per "
+          f"step (median of {len(times) - 2} after 2 warm-up, CUDA events; first {times[0]:.1f}),"
+          f" peak memory {peak:.2f} GiB, launches {counts}; the CPU's step 0 {cpu_s:.1f} s; "
+          f"phase {time.perf_counter() - t0:.1f} s [{card_line()}]")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: losses {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"training launched hand kernels: {counts}")
+    del state
+    return counts
+
+
 # The probe's chain target: long enough that the slope's two walls dwarf the
 # host's jitter, short enough for the smoke (the probe's own default is 2 s).
 PROBE_TARGET_S = 0.15
@@ -1632,6 +1956,9 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel replaced, report key of the line'
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return tp_worker(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -1682,8 +2009,15 @@ def main() -> int:
             paths["voice clone b1 bf16"], cloned = run_voice_cloning(Path(d))
             print(f"voice cloning done at {time.perf_counter() - t_start:.1f} s")
             paths["surfaces b1 bf16"] = run_surfaces(Path(d), **cloned)
-            del cloned
             print(f"surfaces done at {time.perf_counter() - t_start:.1f} s")
+            paths["parallel TP 1x1 bf16"] = run_parallel(Path(d), cloned["config"],
+                                                         cloned["wav_a"])
+            del cloned
+            print(f"parallel done at {time.perf_counter() - t_start:.1f} s")
+            paths["training f32"] = run_training()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"training done at {time.perf_counter() - t_start:.1f} s")
             paths.update(run_24l_paths(Path(d)))
             print(f"24-layer paths done at {time.perf_counter() - t_start:.1f} s")
         paths["probe"] = run_probe_phase()

@@ -46,9 +46,11 @@ ONESHOT_BLOCK = 512  # query rows per block of the windowed one-shot attention
 
 
 def qkv_project(x: torch.Tensor, in_proj, num_heads: int):
-    """x: [B, T, D], in_proj: [3D, D]. Returns q, k, v [B, T, H, Dh]."""
-    B, T, D = x.shape
-    packed = matmul_t(x, in_proj).reshape(B, T, 3, num_heads, D // num_heads)
+    """x: [B, T, D], in_proj: [3 H Dh, D], the packed q, k and v rows of H =
+    num_heads heads (all of them, or a model rank's own under tensor
+    parallelism). Returns q, k, v [B, T, H, Dh]."""
+    B, T, _ = x.shape
+    packed = matmul_t(x, in_proj).reshape(B, T, 3, num_heads, -1)
     return packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
 
 
@@ -137,13 +139,15 @@ def mha_oneshot(
     max_period: float,
     block: int = ONESHOT_BLOCK,
 ) -> torch.Tensor:
-    """Causal self-attention over x [B, T, D] with no cache (voice encoding).
-    Positions are 0..T-1. With a context window the queries go in blocks of
-    `block` rows, each against keys [start - context + 1, end)."""
-    B, T, D = x.shape
+    """Causal self-attention over x [B, T, D] with no cache (voice encoding,
+    the training forward). Positions are 0..T-1. With a context window the
+    queries go in blocks of `block` rows, each against keys
+    [start - context + 1, end). Under tensor parallelism `num_heads` is the
+    rank's own and the result is its partial out_proj sum."""
+    B, T, _ = x.shape
     q, k, v = qkv_project(x, in_proj, num_heads)
     zero = torch.zeros((B,), dtype=torch.int32, device=x.device)
-    rotr, roti = rope_tables(zero, T, D // num_heads, max_period, batch=B)
+    rotr, roti = rope_tables(zero, T, q.shape[-1], max_period, batch=B)
     q, k = rotate(q, rotr, roti), rotate(k, rotr, roti)
     pos = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
     if context is None or T <= block:
@@ -156,7 +160,7 @@ def mha_oneshot(
             outs.append(attend(q[:, start:end], k[:, k0:end], v[:, k0:end],
                                pos[:, start:end], pos[:, k0:end], context))
         out = torch.cat(outs, dim=1)
-    return matmul_t(out.reshape(B, T, D), out_proj)
+    return matmul_t(out.reshape(B, T, -1), out_proj)
 
 
 def mha_step(
@@ -175,12 +179,13 @@ def mha_step(
     """One streaming attention call: project, rope, attend over cache + block.
 
     Does not write the cache: returns (out [B,T,D], k_new, v_new [B,T,H,Dh])
-    for the caller to append once per stack. `att_len`: attend only the
+    for the caller to append once per stack. Under tensor parallelism H =
+    `num_heads` is the rank's own and `out` its partial out_proj sum. `att_len`: attend only the
     first att_len slots (every valid slot lies below it; `masks` were built
     over those slots). `flash_ctx = (pos, offset)` routes the T=1 step to
     the flash-decode op (ops/flash_decode.py), which masks by the position
     map itself (no `masks`)."""
-    B, T, D = x.shape
+    B, T, _ = x.shape
     q, k, v = qkv_project(x, in_proj, num_heads)
     rotr, roti = rope_tabs
     q, k = rotate(q, rotr, roti), rotate(k, rotr, roti)
@@ -192,4 +197,4 @@ def mha_step(
         if att_len is not None:
             cache_k, cache_v = cache_k[:, :att_len], cache_v[:, :att_len]
         out = attend_cached(q, cache_k, cache_v, k, v, masks[0], masks[1])
-    return matmul_t(out.reshape(B, T, D), out_proj), k, v
+    return matmul_t(out.reshape(B, T, -1), out_proj), k, v

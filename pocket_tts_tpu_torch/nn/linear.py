@@ -7,7 +7,8 @@ Routing, as the JAX package's predicate (there behind an environment
 variable; here always): a product of at most 32 rows (leading dims
 flattened) with a 2-D weight whose dims are multiples of 128 goes to the
 gemv op (ops/gemv.py: the CUDA kernel for a CUDA tensor, its plain twin for
-a CPU tensor), plain or int8. Every other int8 product computes as the JAX
+a CPU tensor), plain or int8, unless autograd must differentiate it (the
+kernel has no backward; training's products are torch.matmul). Every other int8 product computes as the JAX
 package's XLA path does: x @ q.T in x's dtype, then times the f32 scale,
 rounded to x's dtype. Other plain products are torch.matmul, as the JAX
 package leaves them to XLA.

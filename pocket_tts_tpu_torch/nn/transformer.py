@@ -6,11 +6,12 @@ GELU(exact) -> Linear -> (+LayerScale) residual. Linears are bias-free;
 LayerNorm uses eps=1e-5 with affine params and f32 statistics.
 
 Routing of a T=1 step over the linear cache (the FlowLM decode step):
-1. B=1, no context, no layer scale, and weights the decode stack takes (all
-   plain or all int8) -> the fused decode-stack op (ops/decode_stack.py);
+1. B=1, no context, no layer scale, no mesh, and weights the decode stack
+   takes (all plain or all int8) -> the fused decode-stack op
+   (ops/decode_stack.py);
 2. otherwise, when the flash-decode op takes the shape, the per-layer loop
    with its attention on that op (ops/flash_decode.py): B>1, and B=1 with
-   mixed quantization;
+   mixed quantization or under a mesh;
 3. any other case raises on CUDA (the CPU runs the plain loop).
 Each op is the CUDA kernel for a CUDA tensor and its plain twin for a CPU
 tensor. Prompt passes (T>1), the windowed Mimi stack and the one-shot pass
@@ -22,6 +23,14 @@ The KV append is in place: `append_kv` and the decode-stack kernel write the
 new rows into the state's k/v/pos tensors. A caller that must keep a state
 (a voice state reused by the next request) clones it first, as
 pipeline/tts.py does at chunk start.
+
+Under a mesh (`cfg.tp` set, parallel/mesh.py) the decode stack is refused,
+as the JAX package drops its packed stack under any mesh: a T=1 step takes
+the layer loop (flash decode and the gemv op at the rank's head count and
+shard widths, or raises on CUDA). With tensor parallelism each rank holds
+its heads' in_proj rows and KV cache and its share of the feed-forward
+features; the attention and the feed-forward block each end in one
+all-reduce over `model` (Megatron's f/g pair, which training runs too).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from pocket_tts_tpu_torch.nn.attention import decode_masks, mha_oneshot, mha_ste
 from pocket_tts_tpu_torch.nn.linear import matmul_t
 from pocket_tts_tpu_torch.nn.rope import rope_tables
 from pocket_tts_tpu_torch.ops.flash_decode import flash_decode_takes
+from pocket_tts_tpu_torch.parallel.mesh import ModelGroup, copy_to_model, reduce_from_model
 
 Params = dict[str, Any]
 
@@ -49,6 +59,13 @@ class TransformerConfig(NamedTuple):
     context: int | None = None
     max_period: float = 10_000.0
     layer_scale: float | None = None
+    tp: ModelGroup | None = None  # set under a mesh: this rank's `model` group
+
+
+def local_heads(cfg: TransformerConfig) -> int:
+    """The heads this process holds: all of them, or H/tp under tensor
+    parallelism."""
+    return cfg.num_heads // (cfg.tp.size if cfg.tp is not None else 1)
 
 
 @dataclasses.dataclass
@@ -89,7 +106,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def init_stack_state(cfg: TransformerConfig, batch_size: int, capacity: int,
                      dtype=torch.float32, device="cuda") -> StackState:
     dh = cfg.d_model // cfg.num_heads
-    shape = (cfg.num_layers, batch_size, capacity, cfg.num_heads, dh)
+    shape = (cfg.num_layers, batch_size, capacity, local_heads(cfg), dh)
     return StackState(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -143,21 +160,25 @@ def layer_step(
     att_len: int | None = None,
     flash_ctx: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    h = layer_norm(x, p["norm1_scale"], p["norm1_bias"])
+    h = copy_to_model(layer_norm(x, p["norm1_scale"], p["norm1_bias"]), cfg.tp)
     attn_out, k_new, v_new = mha_step(
         p["in_proj"], p["out_proj"], h, cache_k, cache_v, rope_tabs, masks,
-        num_heads=cfg.num_heads, att_len=att_len, flash_ctx=flash_ctx,
+        num_heads=local_heads(cfg), att_len=att_len, flash_ctx=flash_ctx,
     )
-    return _residuals(x, attn_out, p), k_new, v_new
+    return _residuals(cfg, x, attn_out, p), k_new, v_new
 
 
-def _residuals(x: torch.Tensor, attn_out: torch.Tensor, p: Params) -> torch.Tensor:
-    """The attention residual (LayerScaled), then the feed-forward block's."""
+def _residuals(cfg: TransformerConfig, x: torch.Tensor, attn_out: torch.Tensor,
+               p: Params) -> torch.Tensor:
+    """The attention residual (LayerScaled), then the feed-forward block's.
+    Under tensor parallelism `attn_out` is the rank's partial sum, and each
+    block's sum over `model` comes before its residual add."""
+    attn_out = reduce_from_model(attn_out, cfg.tp)
     if "ls1" in p:
         attn_out = attn_out * p["ls1"]
     x = x + attn_out
-    h = layer_norm(x, p["norm2_scale"], p["norm2_bias"])
-    ff = matmul_t(F.gelu(matmul_t(h, p["w1"])), p["w2"])
+    h = copy_to_model(layer_norm(x, p["norm2_scale"], p["norm2_bias"]), cfg.tp)
+    ff = reduce_from_model(matmul_t(F.gelu(matmul_t(h, p["w1"])), p["w2"]), cfg.tp)
     if "ls2" in p:
         ff = ff * p["ls2"]
     return x + ff
@@ -165,15 +186,15 @@ def _residuals(x: torch.Tensor, attn_out: torch.Tensor, p: Params) -> torch.Tens
 
 def transformer_oneshot(cfg: TransformerConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Full causal pass over x [B, T, D] with no KV cache, for one-shot uses
-    (voice-prompt encoding) where no state is carried."""
+    (voice-prompt encoding, the training forward) where no state is carried."""
     h = x
     for layer in range(cfg.num_layers):
         p = layer_params(params, layer)
-        attn_out = mha_oneshot(p["in_proj"], p["out_proj"],
-                               layer_norm(h, p["norm1_scale"], p["norm1_bias"]),
-                               num_heads=cfg.num_heads, context=cfg.context,
+        hn = copy_to_model(layer_norm(h, p["norm1_scale"], p["norm1_bias"]), cfg.tp)
+        attn_out = mha_oneshot(p["in_proj"], p["out_proj"], hn,
+                               num_heads=local_heads(cfg), context=cfg.context,
                                max_period=cfg.max_period)
-        h = _residuals(h, attn_out, p)
+        h = _residuals(cfg, h, attn_out, p)
     return h
 
 

@@ -82,11 +82,13 @@ def _quantized(params: dict) -> list[str]:
 
 def stack_takes(cfg: TransformerConfig, params: dict, x: torch.Tensor) -> bool:
     """The routing predicate of nn/transformer.py: a B=1, T=1 step with no
-    context or layer scale, whose four products are all plain or all int8."""
+    context or layer scale, whose four products are all plain or all int8,
+    of a model on no mesh (the JAX package drops its packed stack under any
+    mesh; a sharded model holds only its rank's heads and features)."""
     B, T, _ = x.shape
     quant = _quantized(params)
     return (B == 1 and T == 1 and cfg.context is None and cfg.layer_scale is None
-            and len(quant) in (0, len(_PRODUCTS)))
+            and cfg.tp is None and len(quant) in (0, len(_PRODUCTS)))
 
 
 def _validate(cfg: TransformerConfig, params: dict, x: torch.Tensor,
@@ -95,9 +97,9 @@ def _validate(cfg: TransformerConfig, params: dict, x: torch.Tensor,
     quant = _quantized(params)
     if not stack_takes(cfg, params, x):
         raise NotImplementedError(
-            f"decode_stack takes a B=1, T=1 step with no context or layer scale and no "
-            f"mixed quantization (got B={B}, T={T}, context={cfg.context}, "
-            f"layer_scale={cfg.layer_scale}, int8: {quant})")
+            f"decode_stack takes a B=1, T=1 step with no context or layer scale, no "
+            f"mixed quantization and no mesh (got B={B}, T={T}, context={cfg.context}, "
+            f"layer_scale={cfg.layer_scale}, int8: {quant}, mesh: {cfg.tp is not None})")
     if D % cfg.num_heads or (D // cfg.num_heads) % 2 or cfg.dim_feedforward % 2:
         raise NotImplementedError("decode_stack needs D % H == 0 and even Dh and F")
     for k in quant:

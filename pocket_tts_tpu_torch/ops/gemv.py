@@ -51,9 +51,14 @@ def _weight(w) -> torch.Tensor:
 
 
 def gemv_takes(x: torch.Tensor, w) -> bool:
-    """The JAX package's routing predicate (nn/linear.py there)."""
+    """The JAX package's routing predicate (nn/linear.py there), for a
+    product that autograd need not differentiate: the kernel has no
+    backward (neither has the TPU kernel; the JAX package's training
+    products are XLA dots), so a product that needs a gradient is refused."""
     W = _weight(w)
     rows = math.prod(x.shape[:-1])
+    if torch.is_grad_enabled() and (x.requires_grad or W.requires_grad):
+        return False
     return (1 <= rows <= MAX_ROWS and W.ndim == 2
             and W.shape[0] % 128 == 0 and W.shape[1] % 128 == 0)
 

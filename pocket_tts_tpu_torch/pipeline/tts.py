@@ -47,6 +47,22 @@ reference loop would have run.
 
 Entry points run on CUDA unless the caller passes device="cpu"; there is no
 silent move to the CPU.
+
+Sharded serving (`shard_for_mesh`, parallel/mesh.py): one process per device
+on a ('data', 'model') mesh. `generate_audio_batch` splits the batch's rows
+over `data` in contiguous blocks; each data rank takes its rows of the
+full-batch noise (so the audio does not depend on the sharding), decodes
+them, and every process returns every row (an all-gather). With
+`tensor_parallel=True` the FlowLM backbone and its KV heads split over
+`model` and each layer's two all-reduces join the ranks of a model group at
+every step; the flow head and Mimi are replicated. All ranks of a model
+group must then stop at the same step: the EOS flags are reduced over the
+group before any host decision reads them. They must also draw the same
+noise (the replicated flow head's latent is the next step's input): without
+a seed or a noise_source, the mesh's first rank picks the seed and sends it
+to the others. Under any mesh the decode stack is refused, as in the JAX
+package: a b1 step takes the layer loop (flash decode and the gemv op at the
+rank's shapes).
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pocket_tts_tpu_torch.config import CONFIGS_DIR, Config, load_config
 from pocket_tts_tpu_torch.core.bridge import to_numpy, to_torch
@@ -106,6 +123,17 @@ from pocket_tts_tpu_torch.models.mimi import (
 )
 from pocket_tts_tpu_torch.nn.transformer import StackState
 from pocket_tts_tpu_torch.ops.codec_decode import pack_decoder_params
+from pocket_tts_tpu_torch.parallel.mesh import (
+    any_over_model,
+    broadcast_seed,
+    data_rows,
+    gather_rows,
+    gather_state,
+    mesh_groups,
+    model_group,
+    shard_state,
+    shard_transformer_params,
+)
 from pocket_tts_tpu_torch.pipeline.states import (
     batch_states,
     expand_state,
@@ -273,6 +301,7 @@ class TTSModel:
         self.remove_semicolons = config.remove_semicolons
         self.model_recommended_frames_after_eos = config.model_recommended_frames_after_eos
         self.decode_steps = 0  # FlowLM decode steps run by this model (all requests)
+        self.mesh = None  # set by shard_for_mesh for sharded serving
 
     @property
     def _dtype(self) -> torch.dtype:
@@ -490,10 +519,54 @@ class TTSModel:
         return prompt_step(self.specs, self.params, state, padded, true_len=prompt_len)
 
     def import_state(self, source: str | Path) -> StackState:
-        return import_model_state(source, dtype=self._dtype, device=self.device)
+        """A state file (all heads), cut to this rank's heads under tensor
+        parallelism."""
+        state = import_model_state(source, dtype=self._dtype, device=self.device)
+        return state if self._tp is None else shard_state(state, self._tp)
 
     def export_model_state(self, state: StackState, dest: str | Path) -> None:
-        export_model_state(state, dest)
+        """Write `state` in the file format. Under tensor parallelism every
+        rank of the model group calls it: the heads are gathered, so the file
+        is the same whatever the mesh, and the group's first rank writes it
+        before any rank returns."""
+        tp = self._tp
+        if tp is None or tp.size == 1:
+            export_model_state(state, dest)
+            return
+        full = gather_state(state, tp)
+        if tp.rank == 0:
+            export_model_state(full, dest)
+        dist.barrier(group=tp.group)
+
+    # ----------------------------------------------------------------- sharding
+
+    @property
+    def _tp(self):
+        return self.specs.transformer.tp
+
+    def _seed(self, seed: int | None, groups: list) -> int:
+        """`seed`, or a fresh one that every rank of `groups` shares."""
+        if seed is not None:
+            return seed
+        return broadcast_seed(_fresh_seed(), groups, self.device)
+
+    def shard_for_mesh(self, mesh, tensor_parallel: bool = False) -> None:
+        """Prepare this process for sharded serving on `mesh`
+        (parallel/mesh.make_mesh). DP always: generate_audio_batch splits
+        its rows over `data`. TP (`tensor_parallel=True`): this rank keeps
+        its heads of the FlowLM backbone (and of the KV cache) and its share
+        of the feed-forward features, over `model`; the flow head and Mimi
+        stay whole. Voice states made before the call do not fit a TP model:
+        build or import them after it."""
+        if self.mesh is not None:
+            raise ValueError("the model is already sharded")
+        tp = model_group(mesh, tensor_parallel)
+        cfg = self.specs.transformer
+        self.params = {**self.params, "transformer": shard_transformer_params(
+            self.params["transformer"], cfg.num_heads, tp)}
+        self.specs = dataclasses.replace(self.specs, transformer=cfg._replace(tp=tp))
+        self.mesh = mesh
+        self._voice_state_cache.clear()
 
     # -------------------------------------------------------------- generation
 
@@ -509,7 +582,9 @@ class TTSModel:
 
     def _ensure_capacity(self, lm_state: StackState, slots_needed: int) -> StackState:
         """Progressive capacity growth: pad the cache up to the smallest bucket
-        covering `slots_needed`; never shrinks."""
+        covering `slots_needed`; never shrinks. Under a mesh the cache is
+        this rank's own (its rows and heads) and grows in place of a
+        re-shard."""
         cap = _bucket(slots_needed, CAPACITY_BUCKETS)
         return expand_state(lm_state, cap) if cap > lm_state.k.shape[2] else lm_state
 
@@ -551,6 +626,7 @@ class TTSModel:
             prev_latent = latent
             is_bos = torch.zeros_like(is_bos)
         self.decode_steps += K
+        flags = any_over_model(torch.stack(flags), self._tp)  # one stop decision per group
         stacked = torch.stack(latents)  # [K, B, ldim]
         denorm = stacked * self.params["emb_std"] + self.params["emb_mean"]
         quantized = project_latent(self.mimi_specs, self.mimi_params,
@@ -558,7 +634,7 @@ class TTSModel:
         audio, mimi_state = decoder_step(self.mimi_specs, self.mimi_params, quantized,
                                          mimi_state)  # [B, 1, K*1920]
         audio = audio.reshape(B, 1, K, -1).permute(2, 0, 1, 3)  # [K, B, 1, 1920]
-        return prev_latent, torch.stack(flags), audio, lm_state, mimi_state
+        return prev_latent, flags, audio, lm_state, mimi_state
 
     def _noise(self, gen: torch.Generator, shape) -> torch.Tensor:
         """Flow noise on the device: N(0, temp), truncated to ±noise_clamp by
@@ -650,7 +726,9 @@ class TTSModel:
         gen = None
         if noise_source is None:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(spec.get("seed") if spec.get("seed") is not None else _fresh_seed())
+            tp = self._tp
+            gen.manual_seed(self._seed(spec.get("seed"),
+                                       [tp.group] if tp is not None and tp.size > 1 else []))
 
         run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
         out: list[np.ndarray] = []
@@ -694,12 +772,13 @@ class TTSModel:
         model_state.offset = final_offset
         model_state.write_pos = lm_state.write_pos
 
-    def _prompt_text_tokens(self, lm_state: StackState,
-                            token_lists: list[list[int]]) -> StackState:
-        """One prompt pass over the rows' tokens, right-padded to a
-        PROMPT_BUCKETS bucket; each row's offset advances by its true length."""
+    def _prompt_text_tokens(self, lm_state: StackState, token_lists: list[list[int]],
+                            pad_to: int | None = None) -> StackState:
+        """One prompt pass over the rows' tokens, right-padded to `pad_to`
+        (default: the rows' PROMPT_BUCKETS bucket); each row's offset
+        advances by its true length."""
         counts = [len(t) for t in token_lists]
-        tok = torch.zeros((len(token_lists), _bucket(max(counts), PROMPT_BUCKETS)),
+        tok = torch.zeros((len(token_lists), pad_to or _bucket(max(counts), PROMPT_BUCKETS)),
                           dtype=torch.long)
         for i, tokens in enumerate(token_lists):
             tok[i, : len(tokens)] = torch.as_tensor(tokens, dtype=torch.long)
@@ -744,33 +823,45 @@ class TTSModel:
         is written. Per-row EOS latching and ragged emission: rows finish
         independently and each row's audio is cut at its own frame.
         `noise_source` as in generate_audio_stream, asked for (B, ldim) when
-        K=1 and (K, B, ldim) otherwise."""
+        K=1 and (K, B, ldim) otherwise.
+
+        Under a mesh every process passes the whole batch and gets every row
+        back; it decodes only its data rank's block of rows (`data_rows`: a
+        batch that does not split raises), with the lengths, padding and
+        noise of the whole batch."""
         token_counts = [len(t) for t in token_lists]
         B = len(token_lists)
         max_gen_len = self._estimate_max_gen_len(max(token_counts))
         pad_to = _bucket(max(token_counts), PROMPT_BUCKETS)
         batched = not isinstance(model_states, list)
+        n_states = model_states.offset.shape[0] if batched else len(model_states)
+        if n_states != B:
+            raise ValueError(f"{n_states} voice rows for {B} token lists")
         slots_used = (model_states.write_pos if batched
                       else max(s.write_pos for s in model_states))
+        rows = slice(0, B) if self.mesh is None else data_rows(B, self.mesh)
+        token_lists = token_lists[rows]
         # start small; _ensure_capacity grows the cache per block
         capacity = _bucket(slots_used + pad_to, CAPACITY_BUCKETS)
-        if batched:
-            lm_state = self._working_state(model_states, capacity)
+        if batched:  # this rank's rows, as views: _working_state copies them
+            lm_state = self._working_state(
+                StackState(model_states.k[:, rows], model_states.v[:, rows],
+                           model_states.pos[rows], model_states.offset[rows],
+                           model_states.write_pos), capacity)
         else:
-            lm_state = self._working_state(batch_states(model_states, capacity), capacity,
+            lm_state = self._working_state(batch_states(model_states[rows], capacity), capacity,
                                            fresh=True)
-        if lm_state.offset.shape[0] != B:
-            raise ValueError(f"{lm_state.offset.shape[0]} voice rows for {B} token lists")
-        mimi_state = init_decoder_state(self.mimi_specs, B, self._dtype, self.device)
-        lm_state = self._prompt_text_tokens(lm_state, token_lists)
+        Bl = len(token_lists)
+        mimi_state = init_decoder_state(self.mimi_specs, Bl, self._dtype, self.device)
+        lm_state = self._prompt_text_tokens(lm_state, token_lists, pad_to)
 
         gen = None
         if noise_source is None:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed if seed is not None else _fresh_seed())
-        prev_latent = torch.zeros((B, self.specs.ldim), dtype=torch.float32, device=self.device)
-        eos_step = np.full((B,), -1, np.int64)
-        end_step = np.full((B,), max_gen_len, np.int64)
+            gen.manual_seed(self._seed(seed, [] if self.mesh is None else mesh_groups(self.mesh)))
+        prev_latent = torch.zeros((Bl, self.specs.ldim), dtype=torch.float32, device=self.device)
+        eos_step = np.full((Bl,), -1, np.int64)
+        end_step = np.full((Bl,), max_gen_len, np.int64)
         blocks: list[np.ndarray] = []  # [K, B, 1920] each
         start_slots = slots_used + pad_to
         step = 0
@@ -778,8 +869,8 @@ class TTSModel:
         while step < max_gen_len and not done:
             K = _block_size(step)
             lm_state = self._ensure_capacity(lm_state, start_slots + step + K)
-            is_bos = torch.full((B,), step == 0, dtype=torch.bool, device=self.device)
-            noise = self._block_noise(gen, noise_source, K, B)
+            is_bos = torch.full((Bl,), step == 0, dtype=torch.bool, device=self.device)
+            noise = self._block_noise(gen, noise_source, K, B)[:, rows]
             prev_latent, flags, audio, lm_state, mimi_state = self._decode_block(
                 lm_state, mimi_state, prev_latent, is_bos, noise)
             host_flags = flags.cpu().numpy()
@@ -795,15 +886,18 @@ class TTSModel:
             step += K
 
         if (eos_step < 0).any():
-            rows = np.nonzero(eos_step < 0)[0].tolist()
+            no_eos = (rows.start + np.nonzero(eos_step < 0)[0]).tolist()
             if os.environ.get("POCKET_TTS_ERROR_WITHOUT_EOS", "0") == "1":
                 raise RuntimeError(
-                    f"Generation reached maximum length without EOS (rows {rows})!")
+                    f"Generation reached maximum length without EOS (rows {no_eos})!")
             logger.warning("Maximum generation length reached without EOS on rows %s; "
-                           "this very often indicates an error.", rows)
-        stacked = np.concatenate(blocks, axis=0)  # [S, B, 1920]
-        return [stacked[:min(int(end_step[b]), stacked.shape[0]), b].reshape(-1)
-                for b in range(B)]
+                           "this very often indicates an error.", no_eos)
+        stacked = np.concatenate(blocks, axis=0)  # [S, Bl, 1920]
+        audio = [stacked[:min(int(end_step[b]), stacked.shape[0]), b].reshape(-1)
+                 for b in range(Bl)]
+        if self.mesh is not None and self.mesh.size(0) > 1:
+            audio = gather_rows(audio, self.mesh, self.device)
+        return audio
 
     def generate_audio_batch_from_texts(
         self,

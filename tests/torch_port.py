@@ -62,6 +62,30 @@ def write_small_checkpoint(tmp_path, seed: int = 0):
     return ckpt, tok
 
 
+def write_small_port_checkpoint(tmp_path, seed: int = 0):
+    """write_small_checkpoint's model, with the port's seeded random params
+    (a torch generator) written by the port's save_combined_checkpoint:
+    a second where the JAX init takes about twenty. The bits differ from
+    PRNGKey(seed)'s; both packages load the file. Returns (checkpoint path,
+    tokenizer path)."""
+    from pocket_tts_tpu_torch.config import Config
+    from pocket_tts_tpu_torch.core.weights import save_combined_checkpoint
+    from pocket_tts_tpu_torch.models.flow_lm import build_flow_lm_specs, init_flow_lm_params
+    from pocket_tts_tpu_torch.models.mimi import build_mimi_specs, init_mimi_params
+    from small_model import small_config
+    from test_cli_generate import build_tokenizer_model
+
+    tok = tmp_path / "tok.model"
+    cfg = Config(**small_config(build_tokenizer_model(tok)).model_dump())
+    g = torch.Generator().manual_seed(seed)
+    mimi_specs = build_mimi_specs(cfg.mimi)
+    flow = init_flow_lm_params(build_flow_lm_specs(cfg), g, torch.float32, "cpu")
+    mimi = init_mimi_params(mimi_specs, g, torch.float32, "cpu")
+    ckpt = tmp_path / "model.safetensors"
+    save_combined_checkpoint(ckpt, to_numpy(flow), mimi_specs, to_numpy(mimi))
+    return ckpt, tok
+
+
 def write_small_config(tmp_path, name: str, tokenizer, weights_path=None,
                        without_voice_cloning=None):
     """A YAML config of the small geometry naming a local tokenizer and the
