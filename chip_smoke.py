@@ -51,7 +51,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      round-tripped through export_model_state / import; 3 generate_audio
      requests and one streamed request), then generate_audio_batch_from_texts
      at B=32 in bf16 and in int8 (quantize_config="attention_ffn"), at B=128
-     in bf16, and b1 generate_audio on the int8 model. Every launch counter is
+     in bf16 (its Mimi stack's T = 512 blocks through the chunked windowed
+     attention; each profiled request's peak memory and device time, b128's
+     beside the figures before the chunking), and b1
+     generate_audio on the int8 model. Every launch counter is
      set to 0 just before each path and read just after; each path checks
      the counters its route predicts and that the callers' voice states are
      bit-unchanged, and prints audio-s/s beside the card's name and power
@@ -84,7 +87,24 @@ Phases, each of which makes the script exit non-zero when it fails:
      decode_stack 0 launches, flash_decode at B=1, gemv); with two cards or
      more, 2 DP processes and TP=2 (`--tp-worker` ranks) against the
      1-process audio;
-  5e. the flow-matching training step on the english.yaml FlowLM in f32
+  5e. the HTTP server on a sharded model over 5b's checkpoint, bf16: an
+     unsharded server, then this process as rank 0 of an NCCL group of one
+     with the server's gloo control plane beside it and the model on a 1 x 1
+     TP mesh behind the server; two requests each (the default voice, a
+     voice_wav upload) and /health with the mesh's keys; the mesh server's
+     audio held to the unsharded server's at the bf16 bar, its route checked
+     (decode stack 0, flash_decode L a step, gemv >= 4L a step); first chunk
+     ms, audio-s/s, per-chip audio-s/s and /health ms printed. With two cards
+     or more, 2 ranks at TP=2 (`--server-rank` processes, rank 1 a follower)
+     held to the 1 x 1 audio, then the follower killed inside a generation
+     (rank 0 waiting in an NCCL all-reduce): /health 503 naming the lost
+     heartbeat within HEALTH_TIMEOUT_S + 5 s, the request's stream cut (the
+     mesh's NCCL communicators aborted) within HEALTH_TIMEOUT_S + 15 s, POST
+     /tts 503 at once, rank 0 still answering and exiting with rc 0;
+  5f. the quantization sweep (pocket_tts_tpu_torch.tools.evaluate_quantization
+     --random-init --voices 1 --skip-wer) on english.yaml in f32: five rows
+     printed and read back;
+  5g. the flow-matching training step on the english.yaml FlowLM in f32
      (B=8, 64 latent frames, 16 tokens): step 0's loss and gradients on the
      card against the CPU at the f32 bar, then 20 Adam steps (the loss
      finite and lower at the end), ms per step between CUDA events, peak
@@ -112,6 +132,7 @@ it. Any phase that fails, or a kernel launched on no path, fails the run.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -958,6 +979,24 @@ def profile(label: str, fn, top: int = 8) -> list[tuple[str, int, float]]:
     return [(e.key, e.count, _device_us(e)) for e in kernels]
 
 
+def device_ms(fn):
+    """(fn's result, the device time of its kernels and copies in ms):
+    torch.profiler over CUDA activity alone, the durations summed from the
+    raw trace events (reading them as `key_averages` does takes tens of
+    seconds for a b128 request)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    return out, sum(e.duration_ns() for e in events
+                    if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+
+
 def kernel_modules() -> dict:
     from pocket_tts_tpu_torch.ops import codec_decode, decode_stack, flash_decode, gemv, gemv_stack
 
@@ -1159,8 +1198,10 @@ BATCH_TEXTS = ["hello world. this is a test of the tts.",
 def run_batch(model, voice, B: int, label: str, seed: int, profile_it: bool = False) -> dict:
     """generate_audio_batch_from_texts over B rows (B copies of one B=1
     voice state), twice (the first warms the shapes); counters reset before
-    and read after each run."""
+    and read after each run. With `profile_it`, one more request under the
+    profiler: its device time and its peak memory above what was held."""
     import numpy as np
+    import torch
 
     before = voice.clone()
     texts = [BATCH_TEXTS[i % len(BATCH_TEXTS)] for i in range(B)]
@@ -1185,29 +1226,116 @@ def run_batch(model, voice, B: int, label: str, seed: int, profile_it: bool = Fa
     if not same_state(voice, before):
         raise AssertionError(f"{label}: the callers' voice state changed")
     if profile_it:
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         kernels = profile(f"one {label} request", lambda: model.generate_audio_batch_from_texts(
             [voice] * B, texts, seed=seed), top=16)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
         busy = sum(us for _, _, us in kernels)
         fd_us = sum(us for k, _, us in kernels if "flash_decode" in k)
         fd_n = sum(n for k, n, _ in kernels if "flash_decode" in k)
         print(f"{label}: flash_decode {fd_us / 1e3:.3f} ms of the request's {busy / 1e3:.2f} ms "
               f"device time ({100 * fd_us / busy:.1f}%) in {fd_n} launches "
-              f"({fd_us / max(fd_n, 1):.2f} us each)")
+              f"({fd_us / max(fd_n, 1):.2f} us each); peak memory {peak:.3f} GiB above the "
+              f"{held / 2**30:.2f} GiB held [{card_line()}]")
+        if B == 128:
+            print(f"{label} before the chunked Mimi attention (one masked product): device "
+                  f"time {PARENT_B128_DEVICE_MS} ms (the parent commit's smoke), peak memory "
+                  f"{PARENT_B128_PEAK_GIB} GiB above what was held (--mimi-attention-check); "
+                  "PERF.md")
     return total
+
+
+# The b128 bf16 request before its Mimi blocks of T = 512 were attended in
+# 64-query chunks (one masked product), on an H100 80GB HBM3 at 700 W
+# (PERF.md): its device time by the profile of the parent commit's own
+# smoke (which does not read peak memory), and its peak memory above what
+# was held by `chip_smoke.py --mimi-attention-check`.
+PARENT_B128_DEVICE_MS = 559.82
+PARENT_B128_PEAK_GIB = 7.153
+
+
+def mimi_attention_check() -> int:
+    """`chip_smoke.py --mimi-attention-check`: not part of the smoke; it
+    answers once what chunking the Mimi stack's long blocks changed. The
+    b128 request on english.yaml width on one seed, its Mimi blocks of
+    T = 512 through the chunked windowed attention (the route), then as one
+    masked product (nn.transformer.CHUNKED_MIN_T raised past every block:
+    the route before), in bf16 and in f32: each run's peak memory above
+    what was held and device time (device_ms), and the chunked audio's gap
+    to the one product's (max |a - b| / max |b|; bf16 held to its bar, f32
+    printed: a gap near f32 rounding says the bf16 gap is bf16 rounding)."""
+    import torch
+
+    from pocket_tts_tpu_torch.nn import transformer as tr
+    from pocket_tts_tpu_torch.ops import build
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    build.build_all([m.KERNEL for m in kernel_modules().values()])
+    texts = [BATCH_TEXTS[i % len(BATCH_TEXTS)] for i in range(128)]
+    chunked_min_t = tr.CHUNKED_MIN_T
+    with tempfile.TemporaryDirectory() as d:
+        for dtype in ("bfloat16", "float32"):
+            model = TTSModel.load_model(config=write_config(Path(d)), allow_random_init=True,
+                                        param_dtype=dtype, eos_threshold=1e9)
+            voice = make_voice(model, Path(d), f"voice-{dtype}")
+            model.generate_audio_batch_from_texts([voice] * 128, texts, seed=209)  # warm
+            runs = {}
+            for label, min_t in (("chunked", chunked_min_t), ("one product", 1 << 30)):
+                tr.CHUNKED_MIN_T = min_t
+                try:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    held = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    runs[label], ms = device_ms(lambda: model.generate_audio_batch_from_texts(
+                        [voice] * 128, texts, seed=210))
+                    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                finally:
+                    tr.CHUNKED_MIN_T = chunked_min_t
+                print(f"b128 {dtype} Mimi attention {label}: peak memory {peak:.3f} GiB above "
+                      f"the {held / 2**30:.2f} GiB held, device time {ms:.2f} ms "
+                      f"[{card_line()}]")
+            if dtype == "bfloat16":
+                hold_audio("b128 bf16 chunked vs one product", runs["chunked"],
+                           runs["one product"])
+            else:
+                got, want = runs["chunked"], runs["one product"]
+                err = max(float(abs(a - b).max()) for a, b in zip(got, want))
+                rel = err / max(float(abs(b).max()) for b in want)
+                print(f"b128 f32 chunked vs one product: max_abs_err={err:.3g} rel={rel:.3g}")
+            del model, voice
+    print("mimi attention check: done")
+    return 0
 
 
 def run_batched_paths(tmp: Path, model, voice) -> dict:
     """B=32 bf16, B=128 bf16, then the int8 model: B=32 and b1."""
     from pocket_tts_tpu_torch.pipeline.tts import TTSModel
 
-    paths = {"b32 bf16": run_batch(model, voice, 32, "b32 bf16", 100, profile_it=True),
-             "b128 bf16": run_batch(model, voice, 128, "b128 bf16", 200, profile_it=True)}
+    paths = {}
+    for label, run in (("b32 bf16", lambda: run_batch(model, voice, 32, "b32 bf16", 100,
+                                                      profile_it=True)),
+                       ("b128 bf16", lambda: run_batch(model, voice, 128, "b128 bf16", 200,
+                                                       profile_it=True))):
+        t0 = time.perf_counter()
+        paths[label] = run()
+        print(f"{label}: path {time.perf_counter() - t0:.1f} s with its profiles")
     q_model = TTSModel.load_model(config=write_config(tmp), allow_random_init=True,
                                   param_dtype="bfloat16", eos_threshold=1e9,
                                   quantize_config="attention_ffn")
     q_voice = make_voice(q_model, tmp, "voice-int8")
+    t0 = time.perf_counter()
     paths["b32 int8"] = run_batch(q_model, q_voice, 32, "b32 int8", 300, profile_it=True)
     paths["b1 int8"] = run_b1(q_model, q_voice, "b1 int8", BATCH_TEXTS[:2], [400, 401])
+    print(f"int8 paths: {time.perf_counter() - t0:.1f} s with the load and the profile")
     return paths
 
 
@@ -1812,6 +1940,331 @@ def run_parallel(tmp: Path, config: Path, wav_a: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ server mesh
+
+
+SERVER_SEED = 23  # every request's device noise seed, so two servers compare
+SERVER_TEXTS = ["hello world. this is a test of the tts.",
+                "the card runs fast and small speech."]
+
+
+def with_seed(model, seed: int):
+    """`model` whose every generate_audio_stream draws its device noise from
+    `seed`, whatever seed the server passes (none without a mesh; under one,
+    the one rank 0 drew for the request)."""
+    real = model.generate_audio_stream
+
+    def stream(state, text, **kw):
+        return real(state, text, **{**kw, "seed": seed})
+
+    model.generate_audio_stream = stream
+    return model
+
+
+@contextlib.contextmanager
+def http_server(model, default_voice: Path, plane=None):
+    """api/server.py's handler on a ThreadingHTTPServer on 127.0.0.1 in a
+    thread (what `serve` runs on rank 0): yields (url, serving); shuts down
+    and sends `stop` (`serving.stop`, as `serve` does) on exit."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from pocket_tts_tpu_torch.api.server import make_handler
+
+    handler = make_handler(model, str(default_voice), plane=plane)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}", handler.serving
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        handler.serving.stop()
+
+
+def http_call(url: str, path: str, data: bytes | None = None, ctype: str | None = None,
+              timeout: float = 300.0) -> tuple[int, bytes, float]:
+    """(status, body, ms) of one request; an error status is returned."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": ctype} if ctype else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_requests(url: str, wav_b: Path, label: str, devices: int | None) -> list:
+    """Two POST /tts (the default voice: a clone into the LRU; a multipart
+    upload of wav b), then /health (timed) and /metrics: each WAV's PCM as
+    float (1/32767), each request's first chunk ms, audio-s/s and per-chip
+    audio-s/s printed. `devices`: the mesh's size (None: no mesh)."""
+    import numpy as np
+
+    boundary = "MESHBOUNDARY"
+    upload = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"text\"\r\n\r\n"
+              f"{SERVER_TEXTS[1]}\r\n--{boundary}\r\nContent-Disposition: form-data; "
+              f"name=\"voice_wav\"; filename=\"{wav_b.name}\"\r\n"
+              "Content-Type: audio/wav\r\n\r\n").encode() + wav_b.read_bytes() + \
+        f"\r\n--{boundary}--\r\n".encode()
+    bodies = []
+    for data, ctype in ((("text=" + SERVER_TEXTS[0].replace(" ", "+")).encode(),
+                         "application/x-www-form-urlencoded"),
+                        (upload, f"multipart/form-data; boundary={boundary}")):
+        status, body, _ = http_call(url, "/tts", data, ctype)
+        if status != 200 or body[:4] != b"RIFF":
+            raise AssertionError(f"{label}: /tts answered {status}: {body[:200]!r}")
+        bodies.append(np.frombuffer(body[44:44 + 2 * ((len(body) - 44) // 2)],
+                                    "<i2").astype(np.float32) / 32767)
+    want = ({"status": "ok"} if devices is None else
+            {"status": "ok", "mesh": "healthy", "devices": devices})
+    health_ms = []
+    for _ in range(2):  # the first heartbeat also sets up the mesh's communicator
+        status, body, ms = http_call(url, "/health", timeout=60)
+        if status != 200 or json.loads(body) != want:
+            raise AssertionError(f"{label}: /health {status} {body!r}, want {want}")
+        health_ms.append(f"{ms:.2f}")
+    snap = json.loads(http_call(url, "/metrics", timeout=60)[1])
+    if (snap["requests"], snap["failures"]) != (2, 0):
+        raise AssertionError(f"{label}: /metrics {snap}")
+    last = snap["last_request"]
+    print(f"{label}: 2 requests, first chunk ms {last['first_chunk_ms']} (last), mean "
+          f"{snap['mean_first_chunk_ms']}; audio-s/s {last['audio_s_per_s']} (last), overall "
+          f"{snap['overall_audio_s_per_s']}; per chip {last['audio_s_per_s_per_chip']} "
+          f"(last, {devices or 1} device(s)); /health ms {', '.join(health_ms)} "
+          f"[{card_line()}]")
+    return bodies
+
+
+def run_server_mesh(tmp: Path, config: Path, wav_a: Path, wav_b: Path) -> dict:
+    """The HTTP server on a sharded model, bf16, over the voice-cloning
+    checkpoint: first an unsharded server (no mesh), then this process as
+    rank 0 of an NCCL group of one with the server's gloo control plane
+    beside it (parallel/multihost.ControlPlane), the model on a 1 x 1 TP mesh
+    behind the server (api/server.make_handler with the plane, what `serve`
+    runs on rank 0): two requests each (mesh_requests), /health with the
+    mesh's keys, the mesh server's audio held to the unsharded server's at
+    the bf16 bar and its route checked as run_parallel checks it (decode
+    stack 0, flash_decode L a step, gemv >= 4L a step). With two cards or
+    more, also 2 ranks at TP=2 (run_server_tp2). Returns the 1 x 1 server's
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.parallel.multihost import ControlPlane
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    t0 = time.perf_counter()
+
+    def load():
+        return with_seed(TTSModel.load_model(config=config, param_dtype="bfloat16",
+                                             eos_threshold=1e9), SERVER_SEED)
+
+    with http_server(load(), wav_a) as (url, _):
+        want = mesh_requests(url, wav_b, "server unsharded", None)
+    mesh = make_mesh(1, 1)
+    plane = ControlPlane()
+    model = load()
+    model.shard_for_mesh(mesh, tensor_parallel=True)
+    L = model.specs.transformer.num_layers
+    reset_counts()
+    model.decode_steps = 0
+    with http_server(model, wav_a, plane) as (url, serving):
+        got = mesh_requests(url, wav_b, "server mesh TP 1x1", 1)
+        if serving.error is not None:
+            raise AssertionError(f"server mesh TP 1x1: degraded: {serving.error}")
+    counts, steps = read_counts(), model.decode_steps
+    check_route("server mesh TP 1x1", counts, steps, L, b1=False, skinny=True)
+    hold_audio("server mesh TP 1x1 vs unsharded server", got, want)
+    print(f"server mesh TP 1x1: {steps} decode steps, launches {counts}")
+    dist.destroy_process_group()
+    del model
+    if torch.cuda.device_count() >= 2:
+        hold_audio("server mesh TP=2 vs TP 1x1", run_server_tp2(tmp, config, wav_a, wav_b), got)
+    print(f"server mesh: phase {time.perf_counter() - t0:.1f} s on "
+          f"{torch.cuda.device_count()} card(s) [{card_line()}]")
+    return counts
+
+
+def server_rank(argv: list[str]) -> int:
+    """`chip_smoke.py --server-rank RANK WORLD PORT CONFIG WAV_A WAV_B OUT
+    [FOLLOWER_PID]`: one rank of a 1 x WORLD TP job behind one server on
+    cuda:RANK. A follower (RANK > 0) runs api/server.follow; rank 0 serves
+    mesh_requests, then starts a long request and, once its first chunk has
+    come, kills FOLLOWER_PID: rank 0's request thread is then in an NCCL
+    all-reduce that will not end by itself. It checks that /health answers
+    503 naming the lost heartbeat within HEALTH_TIMEOUT_S + 5 s, that the
+    request's stream ends cut within HEALTH_TIMEOUT_S + 15 s (the watch
+    aborted the mesh's NCCL communicators), that POST /tts answers 503 at
+    once and /health 503 after another HEALTH_TIMEOUT_S; it saves the two
+    requests' PCM and those times to OUT (.npz) and leaves without tearing
+    the broken groups down. Stages are printed as they pass, and every
+    thread's stack is dumped if the loss is not handled in time."""
+    import faulthandler
+    import http.client
+    import logging
+    import os
+    import signal
+    import traceback
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from pocket_tts_tpu_torch.api.server import follow
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.parallel.multihost import (
+        HEALTH_TIMEOUT_S,
+        ControlPlane,
+        initialize_multihost,
+    )
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+
+    rank, world, port = map(int, argv[:3])
+    config, wav_a, wav_b, out = argv[3:7]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, device=f"cuda:{rank}")
+    mesh = make_mesh(1, world)
+    model = with_seed(TTSModel.load_model(config=config, param_dtype="bfloat16",
+                                          eos_threshold=1e9, device=f"cuda:{rank}"), SERVER_SEED)
+    model.shard_for_mesh(mesh, tensor_parallel=True)
+    plane = ControlPlane()
+    if rank:
+        follow(model, plane)
+        return 0
+    logging.basicConfig(level=logging.WARNING, stream=sys.stdout,
+                        format="%(asctime)s %(threadName)s %(name)s: %(message)s")
+
+    def stage(msg):
+        print(f"server rank 0, {time.perf_counter() - t_kill:.2f} s after the kill: {msg}",
+              flush=True)
+
+    try:
+        with http_server(model, Path(wav_a), plane) as (url, serving):
+            bodies = mesh_requests(url, Path(wav_b), f"server mesh TP={world}", world)
+            req = urllib.request.Request(
+                url + "/tts",
+                data=b"text=" + b"+".join([b"a+long+request+to+lose+a+rank."] * 4),
+                headers={"Content-Type": "application/x-www-form-urlencoded"})
+            r = urllib.request.urlopen(req, timeout=HEALTH_TIMEOUT_S + 60)
+            first = len(r.read(44 + 3840))
+            os.kill(int(argv[7]), signal.SIGKILL)
+            t_kill = t0 = time.perf_counter()
+            faulthandler.dump_traceback_later(HEALTH_TIMEOUT_S + 25, file=sys.stdout)
+            while True:
+                status, body, _ = http_call(url, "/health", timeout=HEALTH_TIMEOUT_S + 30)
+                health_ms = (time.perf_counter() - t0) * 1e3
+                if (status == 503 and b"heartbeat" in body
+                        or health_ms > (HEALTH_TIMEOUT_S + 30) * 1e3):
+                    break
+                time.sleep(0.1)
+            stage(f"/health {status} {body[:120]!r}")
+            try:
+                rest, cut = len(r.read()), "no"
+            except (http.client.IncompleteRead, ConnectionError, TimeoutError) as e:
+                rest, cut = 0, type(e).__name__
+            stream_ms = (time.perf_counter() - t0) * 1e3
+            stage(f"the stream ended (cut: {cut})")
+            faulthandler.cancel_dump_traceback_later()
+            post = http_call(url, "/tts", b"text=after+the+loss",
+                             "application/x-www-form-urlencoded", timeout=60)
+            time.sleep(HEALTH_TIMEOUT_S)
+            later = http_call(url, "/health", timeout=HEALTH_TIMEOUT_S + 30)
+            print(f"server mesh TP={world}, follower killed after {first} bytes of a "
+                  f"request: /health {status} after {health_ms:.1f} ms {body[:160]!r}; the "
+                  f"stream ended after {stream_ms:.1f} ms (cut: {cut}, {rest} more bytes); "
+                  f"POST /tts {post[0]} in {post[2]:.1f} ms; /health "
+                  f"{HEALTH_TIMEOUT_S:.0f} s later {later[0]} in {later[2]:.1f} ms "
+                  f"[{card_line()}]", flush=True)
+            if not (status == 503 and health_ms <= (HEALTH_TIMEOUT_S + 5) * 1e3
+                    and cut not in ("no", "TimeoutError")
+                    and stream_ms <= (HEALTH_TIMEOUT_S + 15) * 1e3
+                    and post[0] == 503 and post[2] < 2e3 and later[0] == 503):
+                raise AssertionError("server mesh: a follower killed inside a generation did "
+                                     "not turn the server degraded and end the request in time")
+        np.savez(out, *bodies, health_ms=health_ms, stream_ms=stream_ms, post_ms=post[2])
+    except BaseException:  # noqa: BLE001 — leave without the broken groups' teardown
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    os._exit(0)  # the groups lost a rank: no teardown
+
+
+def run_server_tp2(tmp: Path, config: Path, wav_a: Path, wav_b: Path) -> list:
+    """server_rank on cuda:0 and cuda:1 (rank 1 a follower process, started
+    first): rank 0's two requests' PCM."""
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp / "server-tp2.npz"
+    base = [sys.executable, str(Path(__file__).resolve()), "--server-rank"]
+    args = ["2", str(port), str(config), str(wav_a), str(wav_b), str(out)]
+    follower = subprocess.Popen([*base, "1", *args], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    leader = subprocess.Popen([*base, "0", *args, str(follower.pid)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    logs = []
+    for p in (leader, follower):
+        try:
+            logs.append(p.communicate(timeout=240)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0] + "\n(killed at the time limit)")
+    print(logs[0][-3000:])
+    if leader.returncode != 0 or follower.returncode != -9:
+        raise AssertionError(f"server mesh TP=2: rank 0 rc {leader.returncode}, the follower "
+                             f"rc {follower.returncode}:\n" + "\n".join(logs))
+    saved = np.load(out)
+    return [saved["arr_0"], saved["arr_1"]]
+
+
+# ------------------------------------------------------------------- sweep
+
+
+def run_sweep(tmp: Path) -> dict:
+    """The quantization sweep (pocket_tts_tpu_torch.tools.evaluate_quantization)
+    on the english.yaml config with random weights: --random-init --voices 1
+    --skip-wer, f32 then the four int8 configurations (each its own route:
+    the decode stack for f32 and for int8 attention_ffn and all, the layer
+    loop for the mixed ones). Its rows are printed by the tool; here the CSV
+    is read back: five rows in the tool's order, finite SNR for the int8
+    rows, audio and device memory on every row. Returns the launches."""
+    import csv
+
+    from pocket_tts_tpu_torch.tools import evaluate_quantization as evq
+
+    t0 = time.perf_counter()
+    out = tmp / "sweep"
+    reset_counts()
+    if evq.main(["--config", str(write_config(tmp)), "--random-init", "--voices", "1",
+                 "--skip-wer", "--out", str(out)]) != 0:
+        raise AssertionError("sweep: the tool failed")
+    counts = read_counts()
+    with open(f"{out}.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    if ([r["config"] for r in rows] != [c for c, _ in evq.CONFIGS]
+            or rows[0]["snr_db"] != "inf"
+            or not all(math.isfinite(float(r["snr_db"])) for r in rows[1:])
+            or not all(float(r["audio_s"]) > 0 and r["hbm_mb"] for r in rows)):
+        raise AssertionError(f"sweep: rows {rows}")
+    print(f"sweep: {len(rows)} rows, launches {counts}; phase {time.perf_counter() - t0:.1f} s "
+          f"[{card_line()}]")
+    return counts
+
+
 # ------------------------------------------------------------------ training
 
 
@@ -1959,6 +2412,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         return tp_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--server-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return server_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--mimi-attention-check"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return mimi_attention_check()
     try:
         import torch
     except ImportError:
@@ -2002,7 +2461,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as d:
             check_reference(Path(d))
             check_reference_batch(Path(d))
+            print(f"reference done at {time.perf_counter() - t_start:.1f} s")
             model, voice, b1 = run_main_path(Path(d))
+            print(f"main path done at {time.perf_counter() - t_start:.1f} s")
             paths = {"b1 bf16": b1, **run_batched_paths(Path(d), model, voice)}
             del model, voice
             print(f"6-layer paths done at {time.perf_counter() - t_start:.1f} s")
@@ -2012,8 +2473,13 @@ def main() -> int:
             print(f"surfaces done at {time.perf_counter() - t_start:.1f} s")
             paths["parallel TP 1x1 bf16"] = run_parallel(Path(d), cloned["config"],
                                                          cloned["wav_a"])
-            del cloned
             print(f"parallel done at {time.perf_counter() - t_start:.1f} s")
+            paths["server mesh TP 1x1 bf16"] = run_server_mesh(
+                Path(d), cloned["config"], cloned["wav_a"], cloned["wav_b"])
+            del cloned
+            print(f"server mesh done at {time.perf_counter() - t_start:.1f} s")
+            paths["sweep f32 int8"] = run_sweep(Path(d))
+            print(f"sweep done at {time.perf_counter() - t_start:.1f} s")
             paths["training f32"] = run_training()
             gc.collect()
             torch.cuda.empty_cache()

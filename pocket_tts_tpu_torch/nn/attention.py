@@ -15,11 +15,14 @@ A T=1 step of the FlowLM at B>1 (and at B=1 where the decode stack does not
 take the weights) attends through the flash-decode op instead
 (ops/flash_decode.py), which reads the position map itself.
 
-The windowed Mimi stack uses `attend_cached` for every block length. The JAX
-package splits blocks of T >= 128 into 64-query chunks
-(`attend_windowed_chunked`) to bound the [B, H, T, W+T] logits at large batch;
-at batch 1 those logits are a few MB (T = 512, W = 256: 3 MB in f32), so the
-port keeps the one masked product, whose numerics are the same.
+The windowed Mimi stack takes blocks of T >= CHUNKED_MIN_T through
+`attend_windowed_chunked`, as the JAX package does: 64-query chunks, each
+against only the [c0, c0 + W + chunk) slice of the [cache; block] key axis it
+can see. The one masked product would build [B, H, T, W+T] f32 logits: at
+the batched path's B=128 and T = 512 (a 32-frame block), W = 256, H = 8, that
+is 1.6 GB a layer, against 84 MB a chunk. The numerics are those of
+`attend_cached` (the same mask rule on the sliced positions). Shorter blocks
+keep `attend_cached`.
 
 The one-shot path (voice encoding: `mha_oneshot`) attends a whole sequence
 with no cache, positions 0..T-1. The JAX package builds [B, H, T, T] f32
@@ -43,6 +46,8 @@ from pocket_tts_tpu_torch.ops.flash_decode import flash_decode
 
 NEG = torch.finfo(torch.float32).min
 ONESHOT_BLOCK = 512  # query rows per block of the windowed one-shot attention
+CHUNK = 64  # query rows per chunk of the windowed attention over a long block
+CHUNKED_MIN_T = 128  # the block length from which the windowed stack chunks
 
 
 def qkv_project(x: torch.Tensor, in_proj, num_heads: int):
@@ -129,6 +134,73 @@ def attend_cached(
     return out.to(v_new.dtype)
 
 
+def attend_windowed_chunked(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    pos_cache: torch.Tensor,
+    pos_q: torch.Tensor,
+    context: int,
+    chunk: int = CHUNK,
+    bias_chunks: list[torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Windowed attention over a long block, in chunks of `chunk` queries.
+
+    A query at block position t sees keys within `context` of it, and the
+    window cache holds W >= context slots, so the chunk [c0, c0 + chunk) needs
+    only the [c0, c0 + W + chunk) slice of the concatenated [cache; block] key
+    axis: per-chunk logits are [B, H, chunk, W + chunk]. The keys and values
+    go head-major in f32 once per call, not once per overlapping slice.
+    Numerics as `attend_cached`: f32 logits and softmax, the weights rounded
+    to the values' dtype before the value product.
+
+    q/k_new/v_new: [B, T, H, Dh]; cache_k/v: [B, W, H, Dh]; pos_cache: [B, W];
+    pos_q: [B, T]. `bias_chunks`: `windowed_chunk_bias`'s masks (the same for
+    every layer of a block; built here when None). Returns [B, T, H, Dh]."""
+    T, Dh = q.shape[1], q.shape[3]
+    W = cache_k.shape[1]
+    scale = 1.0 / math.sqrt(Dh)
+
+    def head_major(t):  # [B, T', H, Dh] -> contiguous f32 [B, H, T', Dh]
+        return t.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+
+    keys = torch.cat([cache_k, k_new], dim=1)
+    values = torch.cat([cache_v, v_new], dim=1)
+    kh, vh, qh = head_major(keys), head_major(values), head_major(q)
+    if bias_chunks is None:
+        bias_chunks = windowed_chunk_bias(pos_cache, pos_q, context, chunk)
+    S = W + chunk
+    outs = []
+    for i, c0 in enumerate(range(0, T, chunk)):
+        logits = torch.einsum("bhtd,bhcd->bhtc", qh[:, :, c0:c0 + chunk],
+                              kh[:, :, c0:c0 + S]) * scale
+        w = torch.softmax(logits + bias_chunks[i], dim=-1).to(values.dtype).float()
+        outs.append(torch.einsum("bhtc,bhcd->bhtd", w, vh[:, :, c0:c0 + S]))
+    return torch.cat(outs, dim=2).transpose(1, 2).to(values.dtype)
+
+
+def windowed_chunk_bias(pos_cache: torch.Tensor, pos_q: torch.Tensor, context: int,
+                        chunk: int = CHUNK) -> list[torch.Tensor]:
+    """The per-chunk additive masks of `attend_windowed_chunked`: f32
+    [B, 1, chunk, W + chunk] (the last chunk may be shorter), 0 where a key
+    is valid (filled, not after the query, within `context`) and NEG
+    elsewhere. They depend on positions only, so a stack builds them once
+    per block for all its layers. A query's own key is always in its slice,
+    so no row is fully masked."""
+    T, W = pos_q.shape[1], pos_cache.shape[1]
+    S = W + chunk
+    fpos = torch.cat([pos_cache, pos_q], dim=1)  # [B, W + T]
+    biases = []
+    for c0 in range(0, T, chunk):
+        pk = fpos[:, c0:c0 + S]
+        delta = pos_q[:, c0:c0 + chunk, None] - pk[:, None, :]
+        valid = (pk[:, None, :] >= 0) & (delta >= 0) & (delta < context)
+        biases.append(torch.where(valid, 0.0, NEG).to(torch.float32)[:, None])
+    return biases
+
+
 def mha_oneshot(
     in_proj,
     out_proj,
@@ -175,6 +247,7 @@ def mha_step(
     num_heads: int,
     att_len: int | None = None,
     flash_ctx: tuple[torch.Tensor, torch.Tensor] | None = None,
+    chunk_ctx: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One streaming attention call: project, rope, attend over cache + block.
 
@@ -184,12 +257,17 @@ def mha_step(
     first att_len slots (every valid slot lies below it; `masks` were built
     over those slots). `flash_ctx = (pos, offset)` routes the T=1 step to
     the flash-decode op (ops/flash_decode.py), which masks by the position
-    map itself (no `masks`)."""
+    map itself (no `masks`). `chunk_ctx = (pos_cache, pos_q, context,
+    bias_chunks)` routes a long windowed block to `attend_windowed_chunked`."""
     B, T, _ = x.shape
     q, k, v = qkv_project(x, in_proj, num_heads)
     rotr, roti = rope_tabs
     q, k = rotate(q, rotr, roti), rotate(k, rotr, roti)
-    if flash_ctx is not None:
+    if chunk_ctx is not None:
+        pos_cache, pos_q, context, bias_chunks = chunk_ctx
+        out = attend_windowed_chunked(q, cache_k, cache_v, k, v, pos_cache, pos_q, context,
+                                      bias_chunks=bias_chunks)
+    elif flash_ctx is not None:
         pos, offset = flash_ctx
         out = flash_decode(q[:, 0], cache_k, cache_v, k[:, 0], v[:, 0], pos, offset,
                            att_len=att_len)[:, None]

@@ -14,8 +14,10 @@ Routing of a T=1 step over the linear cache (the FlowLM decode step):
    mixed quantization or under a mesh;
 3. any other case raises on CUDA (the CPU runs the plain loop).
 Each op is the CUDA kernel for a CUDA tensor and its plain twin for a CPU
-tensor. Prompt passes (T>1), the windowed Mimi stack and the one-shot pass
-of the Mimi encoder (`transformer_oneshot`) stay plain PyTorch,
+tensor. Prompt passes (T>1), the windowed Mimi stack (blocks of T >=
+CHUNKED_MIN_T in 64-query chunks, `attend_windowed_chunked`, as the JAX
+package routes them) and the one-shot pass of the Mimi encoder
+(`transformer_oneshot`) stay plain PyTorch,
 as they are plain XLA in the JAX package, apart from their products of at
 most 32 rows (nn/linear.py: the gemv op).
 
@@ -42,7 +44,13 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from pocket_tts_tpu_torch.nn.attention import decode_masks, mha_oneshot, mha_step
+from pocket_tts_tpu_torch.nn.attention import (
+    CHUNKED_MIN_T,
+    decode_masks,
+    mha_oneshot,
+    mha_step,
+    windowed_chunk_bias,
+)
 from pocket_tts_tpu_torch.nn.linear import matmul_t
 from pocket_tts_tpu_torch.nn.rope import rope_tables
 from pocket_tts_tpu_torch.ops.flash_decode import flash_decode_takes
@@ -159,11 +167,13 @@ def layer_step(
     masks: tuple[torch.Tensor, torch.Tensor] | None,
     att_len: int | None = None,
     flash_ctx: tuple[torch.Tensor, torch.Tensor] | None = None,
+    chunk_ctx: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = copy_to_model(layer_norm(x, p["norm1_scale"], p["norm1_bias"]), cfg.tp)
     attn_out, k_new, v_new = mha_step(
         p["in_proj"], p["out_proj"], h, cache_k, cache_v, rope_tabs, masks,
         num_heads=local_heads(cfg), att_len=att_len, flash_ctx=flash_ctx,
+        chunk_ctx=chunk_ctx,
     )
     return _residuals(cfg, x, attn_out, p), k_new, v_new
 
@@ -269,7 +279,9 @@ def transformer_apply(
     the input is right-padded; offsets advance by it, write_pos by T.
     A T=1 step over the linear cache attends only the slots below the write
     pointer (the JAX package's `att_len`): slots fill in write order, so no
-    valid slot lies at or above it.
+    valid slot lies at or above it. A windowed block of T >= CHUNKED_MIN_T
+    with a context attends in chunks (`attend_windowed_chunked`), its masks
+    built once here for every layer.
     """
     from pocket_tts_tpu_torch.ops.decode_stack import decode_stack_apply, stack_takes
 
@@ -289,17 +301,23 @@ def transformer_apply(
                 f"{att} attended slots, context {cfg.context}: neither the "
                 "decode-stack nor the flash-decode kernel takes it")
     tabs = rope_tables(state.offset, T, dh, cfg.max_period, batch=B)
+    masks = flash_ctx = chunk_ctx = None
     if flash:
-        masks, flash_ctx = None, (state.pos, state.offset)
+        flash_ctx = (state.pos, state.offset)
+    elif window and T >= CHUNKED_MIN_T and cfg.context is not None:
+        pos_q = state.offset[:, None] + torch.arange(T, dtype=torch.int32,
+                                                     device=state.offset.device)[None, :]
+        chunk_ctx = (state.pos, pos_q, cfg.context,
+                     windowed_chunk_bias(state.pos, pos_q, cfg.context))
     else:
         pos_cache = state.pos if att is None else state.pos[:, :att]
-        masks, flash_ctx = decode_masks(pos_cache, state.offset, T, cfg.context), None
+        masks = decode_masks(pos_cache, state.offset, T, cfg.context)
     h = x
     ks, vs = [], []
     for layer in range(cfg.num_layers):
         h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
                                      state.k[layer], state.v[layer], tabs, masks,
-                                     att_len=att, flash_ctx=flash_ctx)
+                                     att_len=att, flash_ctx=flash_ctx, chunk_ctx=chunk_ctx)
         ks.append(k_new)
         vs.append(v_new)
     ks = torch.stack(ks)

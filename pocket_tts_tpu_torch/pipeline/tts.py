@@ -449,56 +449,74 @@ class TTSModel:
         name, a wav (path or URL: the first 30 s when `truncate`, downmixed,
         resampled to the model's rate) or an audio array (see
         state_for_audio_array)."""
-        if (isinstance(audio_conditioning, (str, Path))
-                and str(audio_conditioning).endswith(".safetensors")):
-            return self.import_state(download_if_necessary(str(audio_conditioning)))
+        if isinstance(audio_conditioning, np.ndarray):
+            return self.state_for_audio_array(audio_conditioning)
+        kind, value = self.resolve_voice(audio_conditioning, truncate)
+        return self.import_state(value) if kind == "state" else self.state_for_audio_array(value)
+
+    def resolve_voice(self, audio_conditioning: str | Path,
+                      truncate: bool = False) -> tuple[str, object]:
+        """The host half of get_state_for_audio_prompt: reads (or fetches)
+        what a voice names and does no device work. Returns ("state", path
+        of a `.safetensors` export: a file or a predefined voice) or
+        ("audio", float32 [1, T] at the model's sample rate: a wav, the
+        first 30 s when `truncate`, downmixed and resampled)."""
+        if str(audio_conditioning).endswith(".safetensors"):
+            return "state", download_if_necessary(str(audio_conditioning))
         if isinstance(audio_conditioning, str) and audio_conditioning in PREDEFINED_VOICE_ORIGINS:
             if self.origin is None or not Path(self.origin).is_relative_to(CONFIGS_DIR):
                 raise ValueError("Predefined voices need a model loaded from a language "
                                  f"config; origin is {self.origin}")
-            return self.import_state(download_if_necessary(get_predefined_voice(
-                language=Path(self.origin).stem, name=audio_conditioning)))
-        if not self.has_voice_cloning and isinstance(audio_conditioning, (str, Path)):
+            return "state", download_if_necessary(get_predefined_voice(
+                language=Path(self.origin).stem, name=audio_conditioning))
+        if not self.has_voice_cloning:
             raise ValueError(VOICE_CLONING_UNSUPPORTED)
-        if isinstance(audio_conditioning, (str, Path)):
-            audio, sr = audio_read(download_if_necessary(str(audio_conditioning)))
-            if truncate:
-                max_samples = int(30 * sr)
-                if audio.shape[-1] > max_samples:
-                    audio = audio[..., :max_samples]
-            audio = convert_audio(audio, sr, self.sample_rate, 1)
-        else:
-            audio = np.asarray(audio_conditioning, dtype=np.float32)
-        return self.state_for_audio_array(audio)
+        audio, sr = audio_read(download_if_necessary(str(audio_conditioning)))
+        if truncate:
+            max_samples = int(30 * sr)
+            if audio.shape[-1] > max_samples:
+                audio = audio[..., :max_samples]
+        return "audio", convert_audio(audio, sr, self.sample_rate, 1)
 
     def state_for_audio_array(self, audio: np.ndarray) -> StackState:
-        """audio: [1, T] or [B, 1, T] float32 at the model's sample rate. The
-        Mimi encoder's latents (in the Mimi weights' dtype), projected into
-        backbone space in f32 by the speaker projection, then the prompt
-        pass of state_for_conditioning."""
+        """audio: [1, T] or [B, 1, T] float32 at the model's sample rate:
+        voice_conditioning, then the prompt pass of state_for_conditioning."""
+        return self.state_for_conditioning(self.voice_conditioning(audio))
+
+    def voice_conditioning(self, audio: np.ndarray) -> torch.Tensor:
+        """The Mimi encoder's latents of audio [1, T] or [B, 1, T] (in the
+        Mimi weights' dtype), projected into backbone space in f32 by the
+        speaker projection: [B, frames, D]. Mimi and the projection are
+        whole on every rank of a mesh, so this runs no collective."""
         audio = np.asarray(audio, dtype=np.float32)
         if audio.ndim == 2:
             audio = audio[None]
         x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
         latent = encode_to_latent(self.mimi_specs, self.mimi_params, x)  # [B, C, frames]
-        cond = torch.einsum("bct,dc->btd", latent.float(),
+        return torch.einsum("bct,dc->btd", latent.float(),
                             self.params["speaker_proj_weight"].float())
-        return self.state_for_conditioning(cond)
 
     def cached_get_state_for_audio_prompt(self, audio_conditioning: str,
                                           truncate: bool = False) -> StackState:
-        """get_state_for_audio_prompt behind a true LRU(2): a hit moves the
-        entry to most recently used, so alternating between two voices never
-        evicts the hot one. Requests copy the state they are given, so an
-        entry stays as it was built."""
-        key = f"{audio_conditioning}|{truncate}"
+        """get_state_for_audio_prompt behind a true LRU(2) (cached_state)."""
+        return self.cached_state(f"{audio_conditioning}|{truncate}",
+                                 lambda: self.get_state_for_audio_prompt(audio_conditioning,
+                                                                         truncate))
+
+    def cached_state(self, key: str, build: Callable[[], StackState]) -> StackState:
+        """The LRU(2) of voice states: a hit moves `key` to most recently
+        used, so alternating between two voices never evicts the hot one; a
+        miss evicts the least recently used entry, then stores `build()`.
+        Requests copy the state they are given, so an entry stays as it was
+        built. The sharded server keeps every rank's keys in one order by
+        calling this in the same sequence on each."""
         cache = self._voice_state_cache
         if key in cache:
             cache[key] = cache.pop(key)  # move to the end: most recently used
         else:
             if len(cache) >= 2:
                 cache.pop(next(iter(cache)))  # evict the least recently used
-            cache[key] = self.get_state_for_audio_prompt(audio_conditioning, truncate)
+            cache[key] = build()
         return cache[key]
 
     def state_for_conditioning(self, cond: torch.Tensor) -> StackState:

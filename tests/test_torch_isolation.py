@@ -25,7 +25,7 @@ from test_cli_generate import build_tokenizer_model
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "pocket_tts_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "pocket_tts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "pocket_tts_tpu", "scripts")
 
 
 def _imports(path: Path):

@@ -1,6 +1,7 @@
 """Worker processes for the port's multi-process CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_training.py): one gloo
-process per rank of a `torch.distributed` job on this machine.
+(tests/test_torch_parallel.py, tests/test_torch_training.py,
+tests/test_torch_server_mesh.py): one gloo process per rank of a
+`torch.distributed` job on this machine.
 
     python tests/torch_parallel_worker.py SCENARIO DIR
 
@@ -17,11 +18,29 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+def frame_noise(n_frames: int, ldim: int, temp: float, seed: int = 0):
+    """One pre-drawn [frames, 1, ldim] stream served K frames at a time,
+    whatever shape each side asks for."""
+    noise = np.random.default_rng(seed).standard_normal((n_frames, 1, ldim)).astype(np.float32)
+    noise *= temp ** 0.5
+    served = 0
+
+    def source(shape):
+        nonlocal served
+        k = 1 if len(shape) == 2 else shape[0]
+        out = noise[served:served + k].reshape(shape)
+        served += k
+        return out
+
+    return source
 
 
 class RowNoise:
@@ -40,10 +59,8 @@ class RowNoise:
                          for _ in range(K)]).astype(np.float32)
 
 
-def run_ranks(n: int, scenario: str, workdir: Path, timeout: float = 120.0) -> list[dict]:
-    """Run `n` ranks of `scenario` and return every rank's saved arrays.
-    Each rank gets a share of the host's cores. A rank that fails or runs
-    past `timeout` fails the call with every rank's output."""
+def start_ranks(n: int, scenario: str, workdir: Path) -> list[subprocess.Popen]:
+    """Start `n` ranks of `scenario`, each with a share of the host's cores."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -55,10 +72,22 @@ def run_ranks(n: int, scenario: str, workdir: Path, timeout: float = 120.0) -> l
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), scenario, str(workdir)],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def wait_ranks(procs: list[subprocess.Popen], timeout: float) -> list[str]:
+    """Every rank's output once all have ended; a rank still running after
+    `timeout` seconds in all is killed. Raises with every rank's output when
+    a rank failed or was killed."""
+    deadline = time.monotonic() + timeout
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n(killed at the time limit)")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -67,6 +96,14 @@ def run_ranks(n: int, scenario: str, workdir: Path, timeout: float = 120.0) -> l
     if any(p.returncode for p in procs):
         raise AssertionError("\n".join(f"--- rank {r} (rc {p.returncode}):\n{o}"
                                        for r, (p, o) in enumerate(zip(procs, outs))))
+    return outs
+
+
+def run_ranks(n: int, scenario: str, workdir: Path, timeout: float = 120.0) -> list[dict]:
+    """Run `n` ranks of `scenario` and return every rank's saved arrays.
+    A rank that fails or runs past `timeout` fails the call with every
+    rank's output."""
+    wait_ranks(start_ranks(n, scenario, workdir), timeout)
     return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(n)]
 
 
@@ -239,7 +276,92 @@ def train4(inp: dict, meta: dict) -> dict:
     return out
 
 
-SCENARIOS = {"serve4": serve4, "tp2": tp2, "train4": train4}
+def server_mesh(inp: dict, meta: dict) -> dict:
+    """World 2: a 1x2 mesh with tensor_parallel=True (or the mesh
+    meta["mesh"], with TP when it has a model axis > 1) behind one HTTP
+    server (`api.server.serve`, every rank calling it): rank 0 listens on
+    127.0.0.1:meta["port"], rank 1 follows. The control plane's health
+    timeout is meta["health_timeout"].
+    EOS off; every stream on every rank draws a fresh frame_noise. Rank 0
+    yields the chunks of a text with "slowly" in it 20 ms apart (a window in
+    which a generation holds the lock); rank 0's client write of the second
+    chunk of a text with "pause" in it blocks for meta["pause_s"] (a client
+    that stops reading); rank 1 fails to tokenise a text with "fault" in it
+    (a failure on one rank); every rank's first stream of a text with
+    "retry" in it fails before its first step (a transient fault on every
+    rank). Ends when `serve` returns: rank 0's on SIGINT, a follower's on
+    `stop`."""
+    import signal
+
+    from pocket_tts_tpu_torch.api import server
+    from pocket_tts_tpu_torch.parallel import multihost
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+
+    rank = int(os.environ["RANK"])
+    multihost.HEALTH_TIMEOUT_S = meta["health_timeout"]
+    n_data, n_model = meta.get("mesh", (1, 2))
+    model = _load(meta["config"], eos_threshold=1e9)
+    model.shard_for_mesh(make_mesh(n_data, n_model), tensor_parallel=n_model > 1)
+    real_stream, real_encode = model.generate_audio_stream, model._encode_text
+    real_write = server._QueueWriter.write
+    failed_once = set()
+    pause = {"armed": False}
+
+    def stream(state, text, **kw):
+        if "retry" in text and text not in failed_once:
+            failed_once.add(text)
+            raise RuntimeError("a transient fault on every rank")
+        kw["noise_source"] = frame_noise(400, model.specs.ldim, model.gen.temp)
+        for i, chunk in enumerate(real_stream(state, text, **kw)):
+            if rank == 0 and "slowly" in text:
+                time.sleep(0.02)
+            if rank == 0 and "pause" in text and i == 1:
+                pause["armed"] = True
+            yield chunk
+
+    def write(self, data):
+        if pause["armed"] and data:
+            pause["armed"] = False
+            time.sleep(meta["pause_s"])
+        return real_write(self, data)
+
+    def encode(text):
+        if rank == 1 and "fault" in text:
+            raise ValueError("a tokeniser fault on rank 1")
+        return real_encode(text)
+
+    model.generate_audio_stream, model._encode_text = stream, encode
+    server._QueueWriter.write = write
+    signal.signal(signal.SIGINT, signal.default_int_handler)
+    server.serve(model, "127.0.0.1", meta["port"], meta["voice"])
+    return {"decode_steps": np.asarray(model.decode_steps)}
+
+
+def lose_rank(inp: dict, meta: dict) -> dict:
+    """World 2: rank 1 joins the group, then stays silent for
+    meta["silent_s"] seconds and exits without a word; rank 0 times its mesh
+    heartbeat with a `timeout` while rank 1 is silent and again once it has
+    gone."""
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+    from pocket_tts_tpu_torch.parallel.multihost import assert_mesh_healthy
+
+    mesh = make_mesh(2, 1)
+    if int(os.environ["RANK"]) == 1:
+        time.sleep(meta["silent_s"])
+        os._exit(0)
+    out = {}
+    for case in ("silent", "gone"):
+        if case == "gone":
+            time.sleep(meta["silent_s"] + 0.5)
+        t0 = time.monotonic()
+        out[f"{case}_healthy"] = np.asarray(assert_mesh_healthy(mesh, timeout=meta["timeout"]))
+        out[f"{case}_s"] = np.asarray(time.monotonic() - t0)
+    np.savez(Path(meta["dir"]) / "rank0.npz", **out)
+    os._exit(0)  # the group lost a rank: no teardown
+
+
+SCENARIOS = {"serve4": serve4, "tp2": tp2, "train4": train4, "server_mesh": server_mesh,
+             "lose_rank": lose_rank}
 
 
 def main() -> int:
