@@ -56,9 +56,16 @@ Phases, each of which makes the script exit non-zero when it fails:
      beside the figures before the chunking), and b1
      generate_audio on the int8 model. Every launch counter is
      set to 0 just before each path and read just after; each path checks
-     the counters its route predicts and that the callers' voice states are
+     the counters its route predicts (a CUDA graph replay adds the launches
+     its capture recorded) and that the callers' voice states are
      bit-unchanged, and prints audio-s/s beside the card's name and power
-     limit;
+     limit. Every unsharded serving path runs each block as one CUDA graph
+     replay (pipeline/step_graphs.py). The graph phase (`graph_vs_eager`)
+     runs one request per path (b1 bf16, b32 bf16, b128 bf16, b1 int8 and
+     6's 24l b1 bf16) graphed and op by op on the same seed: wall,
+     audio-s/s, replays, device time and busy share (profiled), every
+     graph's warm-up and capture time, and the audio held bit-equal or
+     within the bf16 bar (`graph summary` lines at the end);
   5b. voice cloning at english.yaml width: the port's own random f32 params
      (a seeded generator) written as a safetensors checkpoint, load_model
      from it in bf16 without allow_random_init, two wav voices (10 s mono
@@ -357,8 +364,10 @@ def check_decode_stack(report: dict) -> None:
             def fresh():
                 return StackState(k.clone(), v.clone(), pos.clone(), off.clone(), n_filled)
 
+            # the write pointer as the serving paths hand it over: in device memory
+            wp = torch.tensor([n_filled], dtype=torch.int32, device=dev)
             sk = fresh()
-            h_k = ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset, n_filled)
+            h_k = ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset, wp)
             sp = fresh()
             h_p = ds.decode_stack_plain(cfg, params, x, sp.k, sp.v, sp.pos, sp.offset, n_filled)
             torch.cuda.synchronize()
@@ -376,7 +385,7 @@ def check_decode_stack(report: dict) -> None:
                 raise AssertionError(f"decode_stack {label} C={C}: slots other than "
                                      "write_pos changed")
             def kernel():
-                ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset, n_filled)
+                ds._decode_stack_cuda(cfg, params, x, sk.k, sk.v, sk.pos, sk.offset, wp)
 
             ms = graph_ms([kernel], n=20 if L == 24 else 40)
             host_ms = cuda_ms(kernel)
@@ -702,7 +711,9 @@ def check_flash_decode(report: dict) -> None:
             label = f"flash_decode {dtype_name} B={B} C={C} att_len={att} {fill}"
             label += f" H={H}" if H != 16 else ""
             args = flash_inputs(g, B, C, H, Dh, dtype, att, fill)
-            out_k = fd._flash_decode_cuda(*args, att_len=att)
+            # the attended length as the serving paths hand it over: in device memory
+            att_dev = torch.tensor([att], dtype=torch.int32, device="cuda")
+            out_k = fd._flash_decode_cuda(*args, att_len=att_dev)
             out_p = fd.flash_decode_plain(*args, att_len=att)
             torch.cuda.synchronize()
             if out_k.shape != (B, H, Dh) or not torch.isfinite(out_k.float()).all():
@@ -716,9 +727,9 @@ def check_flash_decode(report: dict) -> None:
             # device time over inputs cold in L2; the host loop reuses one set
             cache_bytes = 2 * args[1].numel() * args[1].element_size()
             sets = flash_sets(args, max(2, math.ceil(FD_COLD_BYTES / cache_bytes)))
-            ms = graph_ms([lambda a=a: fd._flash_decode_cuda(*a, att_len=att) for a in sets],
+            ms = graph_ms([lambda a=a: fd._flash_decode_cuda(*a, att_len=att_dev) for a in sets],
                           n=max(40, len(sets)))
-            host_ms = cuda_ms(lambda: fd._flash_decode_cuda(*args, att_len=att))
+            host_ms = cuda_ms(lambda: fd._flash_decode_cuda(*args, att_len=att_dev))
             plain_ms = cuda_ms(lambda: fd.flash_decode_plain(*args, att_len=att), iters=10)
             # library: SDPA of the same q over [cache || new] with the same
             # boolean mask, its inputs built outside the timed calls
@@ -940,8 +951,9 @@ def check_reference(tmp: Path) -> None:
                                noise_source=frame_source(noise))
     if a_card.shape != a_cpu.shape or a_card.size == 0:
         raise AssertionError(f"reference: lengths differ {a_card.shape} vs {a_cpu.shape}")
-    if counts["decode_stack"] != card.decode_steps or counts["gemv"] == 0:
-        raise AssertionError(f"reference: launches {counts} for {card.decode_steps} steps")
+    if counts["decode_stack"] != card.decode_steps + warm_steps() or counts["gemv"] == 0:
+        raise AssertionError(f"reference: launches {counts} for {card.decode_steps} steps and "
+                             f"{warm_steps()} warm-up steps")
     err = float(np.abs(a_card - a_cpu).max())
     print(f"reference small f32 generate_audio card vs cpu: samples={a_card.size} "
           f"({a_card.size // card.samples_per_frame} frames emitted, {card.decode_steps} "
@@ -979,22 +991,28 @@ def profile(label: str, fn, top: int = 8) -> list[tuple[str, int, float]]:
     return [(e.key, e.count, _device_us(e)) for e in kernels]
 
 
-def device_ms(fn):
+def device_ms(fn, wall: bool = False):
     """(fn's result, the device time of its kernels and copies in ms):
     torch.profiler over CUDA activity alone, the durations summed from the
     raw trace events (reading them as `key_averages` does takes tens of
-    seconds for a b128 request)."""
+    seconds for a b128 request). `wall`: also the ms from fn's start to the
+    device's end, inside the profiler (the window a busy share divides by;
+    the profiler's own cost per launch is in it, so the share is a lower
+    bound)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
     events = prof.profiler.kineto_results.events()
-    return out, sum(e.duration_ns() for e in events
-                    if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    dev = sum(e.duration_ns() for e in events
+              if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    return (out, dev, window) if wall else (out, dev)
 
 
 def kernel_modules() -> dict:
@@ -1005,8 +1023,21 @@ def kernel_modules() -> dict:
 
 
 def reset_counts() -> None:
+    """Every kernel's launch count, and the graph warm-ups' decode steps, to 0."""
+    from pocket_tts_tpu_torch.pipeline import step_graphs
+
     for mod in kernel_modules().values():
         mod.KERNEL.launches = 0
+    step_graphs.warm_ups["steps"] = 0
+
+
+def warm_steps() -> int:
+    """Decode steps run by graph warm-ups since the last reset_counts (each
+    key's capture follows one op-by-op run of its block, whose launches
+    count)."""
+    from pocket_tts_tpu_torch.pipeline import step_graphs
+
+    return step_graphs.warm_ups["steps"]
 
 
 def read_counts() -> dict:
@@ -1049,6 +1080,7 @@ def check_reference_batch(tmp: Path) -> None:
     a_cpu = cpu.generate_audio_batch([cpu.state_for_conditioning(c) for c in conds], tokens,
                                      noise_source=frame_source(noise))
     L = card.specs.transformer.num_layers
+    steps += warm_steps()
     if counts["flash_decode"] != L * steps or steps == 0 or counts["gemv"] < 4 * L * steps:
         raise AssertionError(f"reference batch: launches {counts} for {steps} steps of {L} "
                              f"layers (want flash_decode {L * steps}, gemv at least "
@@ -1102,15 +1134,21 @@ def same_state(a, b) -> bool:
 
 
 def check_route(label: str, counts: dict, steps: int, L: int, b1: bool, skinny: bool) -> None:
-    """The launch counters a path's route predicts: at B=1 the decode stack
-    once per step and no flash decode; at B>1 flash decode once per layer per
-    step and no decode stack; the codec kernel on every path; the gemv kernel
-    on every product of at most 32 rows (at least the four per layer per step
-    of the FlowLM at B<=32) and on none at B=128."""
+    """The launch counters a path's route predicts, over its `steps` decode
+    steps and the graph warm-ups' since the counters were reset: at B=1 the
+    decode stack once per step and no flash decode; at B>1 flash decode once
+    per layer per step and no decode stack; the codec kernel on every path;
+    the gemv kernel on every product of at most 32 rows (at least the four
+    per layer per step of the FlowLM at B<=32) and on none at B=128."""
+    if steps == 0:
+        raise AssertionError(f"{label}: no decode step")
+    warm = warm_steps()
+    steps += warm
     want_ds, want_fd = (steps, 0) if b1 else (0, L * steps)
-    if steps == 0 or counts["decode_stack"] != want_ds or counts["flash_decode"] != want_fd:
-        raise AssertionError(f"{label}: launches {counts} for {steps} decode steps of {L} "
-                             f"layers (want decode_stack {want_ds}, flash_decode {want_fd})")
+    if counts["decode_stack"] != want_ds or counts["flash_decode"] != want_fd:
+        raise AssertionError(f"{label}: launches {counts} for {steps} decode steps ({warm} of "
+                             f"them warm-ups) of {L} layers (want decode_stack {want_ds}, "
+                             f"flash_decode {want_fd})")
     if counts["codec_decode"] == 0:
         raise AssertionError(f"{label}: codec_decode never launched")
     if skinny and counts["gemv"] < (0 if b1 else 4 * L * steps) + 1:
@@ -1118,6 +1156,139 @@ def check_route(label: str, counts: dict, steps: int, L: int, b1: bool, skinny: 
     if not skinny and counts["gemv"] != 0:
         raise AssertionError(f"{label}: gemv launched {counts['gemv']} times at more than "
                              "32 rows")
+
+
+GRAPH_RESULTS: dict = {}  # label -> graph_vs_eager's numbers
+
+
+def graph_vs_eager(model, label: str, request) -> dict:
+    """One request as CUDA graph replays (the serving default) and the same
+    request op by op (model._graphed patched to False) on the same seed: each timed
+    (wall, audio-s/s, replays), then each again under the profiler (device
+    time and busy share of that request's window inside the profiler: a
+    lower bound, the profiler's own cost per launch is in the window). The
+    audio must be bit-equal or
+    within the bf16 bar (REL_TOL of max |eager|); the gap is printed. Also
+    prints every graph's capture time on this model."""
+    import numpy as np
+    import torch
+
+    def run():
+        out = request()
+        return np.concatenate(out) if isinstance(out, list) else out
+
+    res = {}
+    for mode in ("graphed", "eager"):
+        model._graphed = lambda graphed=mode == "graphed": graphed
+        try:
+            n0 = model.step_graphs.replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = run()
+            wall = time.perf_counter() - t0
+            n_replays = model.step_graphs.replays - n0
+            _, dev, window = device_ms(run, wall=True)
+        finally:
+            del model._graphed
+        if audio.size == 0 or not np.isfinite(audio).all():
+            raise AssertionError(f"graph {label} {mode}: bad audio ({audio.size} samples)")
+        secs = audio.size / model.sample_rate
+        res[mode] = dict(audio=audio, wall_s=wall, audio_s_per_s=secs / wall, replays=n_replays,
+                         device_ms=dev, profiled_wall_ms=window, busy=dev / window,
+                         audio_s=secs)
+    g, e = res["graphed"], res["eager"]
+    if g["audio"].shape != e["audio"].shape:
+        raise AssertionError(f"graph {label}: {g['audio'].shape} vs {e['audio'].shape} samples")
+    if e["replays"] or not g["replays"]:
+        raise AssertionError(f"graph {label}: {g['replays']} replays graphed, {e['replays']} "
+                             "eager")
+    err, rel = rel_err(torch.from_numpy(g["audio"]), torch.from_numpy(e["audio"]))
+    bit_equal = bool(np.array_equal(g["audio"], e["audio"]))
+    tol = REL_TOL[str(model._dtype).replace("torch.", "")]
+    captures = [f"K={st['K']} B={st['B']} C={st['C']} {st['noise']}: warm-up "
+                f"{1e3 * st['warmup_s']:.1f} ms, capture {1e3 * st['capture_s']:.1f} ms"
+                for st in model.step_graphs.stats()]
+    print(f"graph {label}: graphed {g['wall_s']:.3f} s a request ({g['audio_s']:.2f} s of "
+          f"audio, {g['audio_s_per_s']:.2f} audio-s/s, {g['replays']} replays, device "
+          f"{g['device_ms']:.2f} ms, {100 * g['busy']:.1f}% busy) vs eager {e['wall_s']:.3f} s "
+          f"({e['audio_s_per_s']:.2f} audio-s/s, device {e['device_ms']:.2f} ms, "
+          f"{100 * e['busy']:.1f}% busy); audio "
+          f"{'bit-equal' if bit_equal else f'max_abs_err={err:.3g} rel={rel:.3g}'} "
+          f"(bar {tol}) [{card_line()}]")
+    print(f"graph {label}: captures on this model: {'; '.join(captures)}")
+    if not rel <= tol:
+        raise AssertionError(f"graph {label}: graphed vs eager audio rel {rel:.3g} > {tol}")
+    GRAPH_RESULTS[label] = dict(
+        bit_equal=bit_equal, max_abs_err=err, rel=rel,
+        **{f"{m}_{k}": v for m, r in res.items() for k, v in r.items() if k != "audio"},
+        captures_ms={f"K={st['K']} B={st['B']} C={st['C']}": [1e3 * st["warmup_s"],
+                                                               1e3 * st["capture_s"]]
+                     for st in model.step_graphs.stats()})
+    return GRAPH_RESULTS[label]
+
+
+def graph_memory(model, B: int = 32) -> dict:
+    """Device memory of one request that crosses two capacity buckets
+    mid-generation (a voice of 127 frames, 128 slots with its BOS, and 40
+    tokens padded to 64: 256 slots, 384 from frame 34, 512 from frame 162
+    of 192; B rows, EOS off), op by op, then graphed with a budget of 0,
+    then graphed with the default budget (StepGraphs.budget): the bytes
+    allocated and reserved above the start at the peak, allocated after the
+    request, what the model's lanes keep (slabs, graph pools, own buffers),
+    and the reserved bytes above the start after empty_cache. Graphed with
+    budget 0 nothing stays past what op by op leaves and the allocated peak
+    is within 10% of op by op's; with the default budget what stays is
+    within the budget and the slabs of all three buckets are kept. Every
+    lane of the model is dropped first."""
+    import numpy as np
+    import torch
+
+    sg = model.step_graphs
+    D = model.specs.transformer.d_model
+    g = torch.Generator(device="cuda").manual_seed(11)
+    voice = model.state_for_conditioning(torch.randn((1, 127, D), generator=g, device="cuda")
+                                         * 0.5)
+    tokens = (model._encode_text(" ".join(BATCH_TEXTS)) * 4)[:40]
+    res = {}
+    for mode, budget in (("eager", None), ("graphed budget 0", 0), ("graphed", None)):
+        sg.release()
+        sg.budget = budget
+        if mode == "eager":
+            model._graphed = lambda: False
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, base_r = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = model.generate_audio_batch([voice] * B, [tokens] * B, seed=13)
+        finally:
+            model.__dict__.pop("_graphed", None)
+        torch.cuda.synchronize()
+        r = dict(peak=torch.cuda.max_memory_allocated() - base,
+                 peak_reserved=torch.cuda.max_memory_reserved() - base_r,
+                 after=torch.cuda.memory_allocated() - base, held=sg.held(),
+                 budget=sg.budget, slabs=sorted({st["C"] for st in sg.stats()}),
+                 frames=out[0].size // model.samples_per_frame)
+        torch.cuda.empty_cache()
+        r["reserved_after"] = torch.cuda.memory_reserved() - base_r
+        if len(out) != B or any(a.size == 0 or not np.isfinite(a).all() for a in out):
+            raise AssertionError(f"graph memory {mode}: bad audio")
+        res[mode] = r
+        print(f"graph memory B={B} {mode}: peak {r['peak'] / 2**20:.1f} MiB (reserved "
+              f"{r['peak_reserved'] / 2**20:.1f} MiB), after "
+              f"{r['after'] / 2**20:.1f} MiB, held {r['held'] / 2**20:.1f} MiB (budget "
+              f"{(r['budget'] or 0) / 2**20:.0f} MiB, slabs {r['slabs']}), reserved after "
+              f"empty_cache {r['reserved_after'] / 2**20:.1f} MiB, {r['frames']} frames "
+              f"[{card_line()}]")
+    e, z, d = res["eager"], res["graphed budget 0"], res["graphed"]
+    if z["held"] or z["after"] > e["after"] + 2**20 or z["peak"] > 1.1 * e["peak"]:
+        raise AssertionError(f"graph memory: budget 0 keeps {z} (op by op {e})")
+    if d["slabs"] != [256, 384, 512] or d["held"] > d["budget"] or d["after"] > d["held"]:
+        raise AssertionError(f"graph memory: the default budget keeps {d}")
+    sg.budget = None
+    GRAPH_RESULTS[f"memory B={B}"] = {f"{m} {k}": v for m, r in res.items() for k, v in r.items()}
+    return res
 
 
 MAIN_TEXTS = ["hello world. this is a test of the tts.",
@@ -1179,6 +1350,7 @@ def run_main_path(tmp: Path):
                                 eos_threshold=1e9)
     voice = make_voice(model, tmp, "voice-bf16")
     launches = run_b1(model, voice, "main path b1 bf16", MAIN_TEXTS, [1, 2, 3], stream_seed=9)
+    graph_vs_eager(model, "b1 bf16", lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=5))
     # enough rows for every decode-stack and codec kernel
     profile("one generate_audio request",
             lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=4), top=16)
@@ -1327,7 +1499,14 @@ def run_batched_paths(tmp: Path, model, voice) -> dict:
                                                        profile_it=True))):
         t0 = time.perf_counter()
         paths[label] = run()
+        B = int(label[1:label.index(" ")])
+        texts = [BATCH_TEXTS[i % len(BATCH_TEXTS)] for i in range(B)]
+        graph_vs_eager(model, label, lambda: model.generate_audio_batch_from_texts(
+            [voice] * B, texts, seed=7))
         print(f"{label}: path {time.perf_counter() - t0:.1f} s with its profiles")
+    t0 = time.perf_counter()
+    graph_memory(model)
+    print(f"graph memory: {time.perf_counter() - t0:.1f} s")
     q_model = TTSModel.load_model(config=write_config(tmp), allow_random_init=True,
                                   param_dtype="bfloat16", eos_threshold=1e9,
                                   quantize_config="attention_ffn")
@@ -1335,6 +1514,8 @@ def run_batched_paths(tmp: Path, model, voice) -> dict:
     t0 = time.perf_counter()
     paths["b32 int8"] = run_batch(q_model, q_voice, 32, "b32 int8", 300, profile_it=True)
     paths["b1 int8"] = run_b1(q_model, q_voice, "b1 int8", BATCH_TEXTS[:2], [400, 401])
+    graph_vs_eager(q_model, "b1 int8", lambda: q_model.generate_audio(q_voice, BATCH_TEXTS[0],
+                                                                       seed=402))
     print(f"int8 paths: {time.perf_counter() - t0:.1f} s with the load and the profile")
     return paths
 
@@ -1355,6 +1536,9 @@ def run_24l_paths(tmp: Path) -> dict:
         voice = make_voice(model, tmp, label.replace(" ", "-"))
         paths[label] = run_b1(model, voice, label, MAIN_TEXTS[:2], [500, 501],
                               stream_seed=None if quant else 509)
+        if quant is None:
+            graph_vs_eager(model, label, lambda: model.generate_audio(voice, MAIN_TEXTS[1],
+                                                                       seed=504))
         if quant is None:  # where a 24-layer request and its first chunk spend their time
             profile(f"one {label} request",
                     lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=502), top=12)
@@ -2501,6 +2685,9 @@ def main() -> int:
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
+    for label, r in GRAPH_RESULTS.items():  # the graph phase's numbers, once more in one place
+        print(f"graph summary {label}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{card_line()}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -463,19 +463,30 @@ class _Serving:
             self.lock.release()
 
     def stop(self) -> None:
-        """Send the followers `stop` (best effort: a follower that is gone
-        cannot take it) and end the watch; no op is sent after it."""
+        """Send the followers `stop` and end the watch, within a few health
+        timeouts whatever state the followers are in; no op is sent after
+        it. Nothing is sent when the mesh is degraded (a lost follower
+        cannot take it), when a generation still holds the lock after the
+        health timeout, or when a follower's heartbeat stands still for
+        the health timeout (a stopped or stuck follower would hold the send,
+        and a pending send keeps this process from exiting)."""
         if self.plane is None:
             return
         self.plane.close()
+        if self.error is not None:
+            logger.warning("stop not sent: the mesh is degraded (%s)", self.error)
+            return
         # a generation that a lost follower left in the data plane may hold
         # the lock for good: the followers are then past taking `stop`
         if not self.lock.acquire(timeout=self.plane.health_timeout):
             logger.warning("stop not sent: a generation still holds the mesh")
-            self.error = self.error or "the server has stopped"
+            self.error = "the server has stopped"
             return
         try:
-            self.plane.send("stop")
+            if not self.plane.followers_beat(self.plane.health_timeout):
+                logger.warning("stop not sent: a follower's heartbeat stands still")
+            else:
+                self.plane.send("stop")
         except ControlPlaneError as e:
             logger.warning("stop did not reach every follower: %s", e)
         finally:

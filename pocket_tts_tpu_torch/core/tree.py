@@ -1,6 +1,8 @@
 """A map over the port's parameter and state trees: dicts, lists,
 NamedTuples (ConvParams, ConvState, ...) and StackStates, with tensor leaves.
-None stays None; a StackState's host-int write_pos is kept as it is."""
+None stays None; a StackState's host-int write_pos is kept as it is (its
+device write_ptr is not carried). `tree_leaves` lists the tensor leaves in
+the order tree_map visits them."""
 
 from __future__ import annotations
 
@@ -24,3 +26,15 @@ def tree_map(fn: Callable[[torch.Tensor], object], tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensor leaves of `tree`, in tree_map's order."""
+    out: list[torch.Tensor] = []
+
+    def visit(t):
+        out.append(t)
+        return t
+
+    tree_map(visit, tree)
+    return out

@@ -6,7 +6,9 @@
 //   h = LN1(x); q,k,v = h @ in_proj[l].T, RoPE on q and k at position `offset`
 //   x += Attn(q, cache[l] + the step's own k/v) @ out_proj[l].T
 //   h = LN2(x); x += gelu(h @ w1[l].T) @ w2[l].T
-// and the new k/v row is written into cache[l] at slot `write_pos`.
+// and the new k/v row is written into cache[l] at slot `write_pos`, which the
+// kernel reads from device memory (so a CUDA graph of several steps replays
+// with the pointer that the graph itself advances).
 //
 // Bound on the H100: bytes. At batch 1 every product is a matrix-vector
 // product: every weight is read once per step (6 layers x 12.6 M params =
@@ -43,8 +45,9 @@
 // the producer finds the ring full for most of a step (PERF.md).
 //
 // Attention: each block of a head's S splits (S = write_pos / 128 rounded
-// up, at most grid / H) finds its attended slots once per launch (slot c to
-// split c % S, 0 <= pos[c] <= offset, compacted in slot order) and loads
+// up, at most grid / H, found by every block from the device write pointer)
+// finds its attended slots once per launch (slot c < write_pos to split
+// c % S, 0 <= pos[c] <= offset, compacted in slot order) and loads
 // its first key and value rows before q. A split scores its slots; with
 // S > 1 the head's blocks exchange their (max, sum of exp) at a head
 // barrier and each forms the global max and denominator in one fixed order.
@@ -113,7 +116,7 @@ __device__ __align__(16) float g_part[kMaxBlocks * (kMaxHeadDim + 2) + kMaxHeads
 enum Epilogue { kQkvRope = 0, kResidual = 1, kGelu = 2 };
 
 struct Params {
-  int L, D, H, F, C, S, write_pos;
+  int L, D, H, F, C, Smax;  // Smax: the most attention splits per head (the plan's)
   float rope_c, scale;
   int stage_bytes, n_stages, xin_floats, vidx_ints;
   void* x;                // [D] residual stream, in and out
@@ -123,20 +126,33 @@ struct Params {
   void *cache_k, *cache_v;            // [L, C, D]
   const int* pos;                     // [C]
   const int* offset;                  // [1]
+  const int* wp;                      // [1] the write pointer (slot of the append)
   void* qkv;                          // [3D] scratch
   void* g;                            // [F] scratch
 };
 
 // Where split s of head h keeps its partial value sum [Dh] and its (max, sum
 // of exp), and head h the step's own normalised weight, in g_part.
-__device__ __forceinline__ float* part_sum(const Params& p, int h, int s) {
-  return g_part + (static_cast<size_t>(h) * p.S + s) * (p.D / p.H);
+// S is the launch's split count (split_count).
+__device__ __forceinline__ float* part_sum(const Params& p, int S, int h, int s) {
+  return g_part + (static_cast<size_t>(h) * S + s) * (p.D / p.H);
 }
-__device__ __forceinline__ float* part_stats(const Params& p, int h) {
-  return g_part + static_cast<size_t>(p.H) * p.S * (p.D / p.H) + static_cast<size_t>(h) * p.S * 2;
+__device__ __forceinline__ float* part_stats(const Params& p, int S, int h) {
+  return g_part + static_cast<size_t>(p.H) * S * (p.D / p.H) + static_cast<size_t>(h) * S * 2;
 }
-__device__ __forceinline__ float* part_new(const Params& p) {
-  return g_part + static_cast<size_t>(p.H) * p.S * (p.D / p.H + 2);
+__device__ __forceinline__ float* part_new(const Params& p, int S) {
+  return g_part + static_cast<size_t>(p.H) * S * (p.D / p.H + 2);
+}
+
+// The write pointer of this launch (clamped into the cache, as the JAX
+// package's dynamic_update_slice clamps; the host refuses an overflow
+// before it launches) and the attention splits per head it gives: about
+// kSlotsPerSplit filled slots each, at least one, at most Smax.
+__device__ __forceinline__ int write_slot(const Params& p) {
+  return min(max(__ldg(p.wp), 0), p.C - 1);
+}
+__device__ __forceinline__ int split_count(const Params& p, int wp) {
+  return min(max((wp + kSlotsPerSplit - 1) / kSlotsPerSplit, 1), p.Smax);
 }
 
 // ------------------------------------------------------------ primitives
@@ -534,10 +550,10 @@ __device__ void layer_norm_in(const T* x, int D, const T* w, const T* b, float* 
 // head's S blocks exchange them at a head barrier; then the weights under
 // the head's global max and denominator and the f32 partial value sum.
 template <typename T>
-__device__ void attend_split(const Params& p, int l, int h, int s, const int* vidx, int n_v,
-                             float* smem, float* red, unsigned& head_epoch) {
+__device__ void attend_split(const Params& p, int S, int l, int h, int s, const int* vidx,
+                             int n_v, float* smem, float* red, unsigned& head_epoch) {
   constexpr int V = Wvec<T>::n;
-  const int D = p.D, Dh = D / p.H, S = p.S, tid = threadIdx.x, lane = tid % 32;
+  const int D = p.D, Dh = D / p.H, tid = threadIdx.x, lane = tid % 32;
   const int vrow = Dh / V;  // 16-byte vectors of a head's row (at most 32)
   int lps = 1;              // lanes per slot in the scores (a power of two)
   while (lps < vrow) lps *= 2;
@@ -612,7 +628,7 @@ __device__ void attend_split(const Params& p, int l, int h, int s, const int* vi
   for (int i = tid; i < n_v; i += kConsumers) e += expf(w[i] - m);
   const float lsum = consumer_sum(e, red);
   if (S > 1) {
-    float* stats = part_stats(p, h);
+    float* stats = part_stats(p, S, h);
     if (tid == 0) {
       __stcg(stats + 2 * s, m);
       __stcg(stats + 2 * s + 1, lsum);
@@ -631,7 +647,7 @@ __device__ void attend_split(const Params& p, int l, int h, int s, const int* vi
     if (st[2 * j + 1] > 0.f) denom += st[2 * j + 1] * expf(st[2 * j] - M);
   denom += expf(sn - M);
   for (int i = tid; i < n_v; i += kConsumers) w[i] = round_t<T>(expf(w[i] - M) / denom);
-  if (s == 0 && tid == 0) __stcg(part_new(p) + h, round_t<T>(expf(sn - M) / denom));
+  if (s == 0 && tid == 0) __stcg(part_new(p, S) + h, round_t<T>(expf(sn - M) / denom));
   consumer_sync();
   // value sum: vrow threads per slot row (one 16-byte column chunk each),
   // `groups` slot groups, kBatch slots of a group loaded at a time
@@ -674,7 +690,7 @@ __device__ void attend_split(const Params& p, int l, int h, int s, const int* vi
     vq[pq * Dh + d] = a;
   }
   consumer_sync();
-  float* out = part_sum(p, h, s);
+  float* out = part_sum(p, S, h, s);
   for (int d = tid; d < Dh; d += kConsumers) {
     float a = 0.f;
     for (int pq = 0; pq < parts; ++pq) a += vq[pq * Dh + d];
@@ -682,15 +698,17 @@ __device__ void attend_split(const Params& p, int l, int h, int s, const int* vi
   }
 }
 
-// The slots c = s, s + S, ... (c < C) attended by split s (0 <= pos[c] <=
-// offset), in slot order, into vidx; returns their count. Once per launch:
-// the positions and the offset do not change within it.
-__device__ int attended_slots(const Params& p, int s, int* vidx, int* warp_counts) {
+// The slots c = s, s + S, ... (c < wp, the write pointer: slots fill in
+// write order, so no valid slot lies at or above it) attended by split s of
+// S (0 <= pos[c] <= offset), in slot order, into vidx; returns their count.
+// Once per launch: the positions and the offset do not change within it.
+__device__ int attended_slots(const Params& p, int S, int wp, int s, int* vidx,
+                              int* warp_counts) {
   const int off = *p.offset, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int n_s = s < p.C ? (p.C - s + p.S - 1) / p.S : 0;
+  const int n_s = s < wp ? (wp - s + S - 1) / S : 0;
   int base = 0;
   for (int i0 = 0; i0 < n_s; i0 += kConsumers) {
-    const int i = i0 + tid, c = s + i * p.S;
+    const int i = i0 + tid, c = s + i * S;
     bool ok = false;
     if (i < n_s) {
       const int pc = p.pos[c];
@@ -712,14 +730,15 @@ __device__ int attended_slots(const Params& p, int s, int* vidx, int* warp_count
 }
 
 // Phase 3's prologue: attn = the S partial value sums of each head plus the
-// step's own term, rounded to T, into xin; and the KV append of layer l.
+// step's own term, rounded to T, into xin; and the KV append of layer l at
+// slot wp.
 template <typename T, int VW>
-__device__ void merge_and_append(const Params& p, int l, float* xin) {
-  const int D = p.D, Dh = D / p.H, S = p.S, tid = threadIdx.x;
+__device__ void merge_and_append(const Params& p, int S, int wp, int l, float* xin) {
+  const int D = p.D, Dh = D / p.H, tid = threadIdx.x;
   const T* qkv = static_cast<const T*>(p.qkv);
   for (int d4 = tid; d4 < D / 4; d4 += kConsumers) {
     const int d = 4 * d4, h = d / Dh, dd = d % Dh;
-    const float4* src = reinterpret_cast<const float4*>(part_sum(p, h, 0) + dd);
+    const float4* src = reinterpret_cast<const float4*>(part_sum(p, S, h, 0) + dd);
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s = 0; s < S; ++s) {  // fixed order
       const float4 v = __ldcg(src + s * (Dh / 4));
@@ -728,7 +747,7 @@ __device__ void merge_and_append(const Params& p, int l, float* xin) {
       a.z += v.z;
       a.w += v.w;
     }
-    const float wn = __ldcg(part_new(p) + h);
+    const float wn = __ldcg(part_new(p, S) + h);
     reinterpret_cast<float4*>(xin)[xslot4<VW>(d, D)] =
         make_float4(round_t<T>(a.x + wn * ld_cg(qkv + 2 * D + d)),
                     round_t<T>(a.y + wn * ld_cg(qkv + 2 * D + d + 1)),
@@ -736,7 +755,7 @@ __device__ void merge_and_append(const Params& p, int l, float* xin) {
                     round_t<T>(a.w + wn * ld_cg(qkv + 2 * D + d + 3)));
   }
   // every read of layer l's cache is done (grid barrier): append k|v
-  const size_t row = (static_cast<size_t>(l) * p.C + p.write_pos) * D;
+  const size_t row = (static_cast<size_t>(l) * p.C + wp) * D;
   for (int i = blockIdx.x * kConsumers + tid; i < 2 * D; i += gridDim.x * kConsumers) {
     T* dst = static_cast<T*>(i < D ? p.cache_k : p.cache_v) + row + (i % D);
     st_cg(dst, ld_cg(qkv + D + i));
@@ -773,15 +792,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1) stack_kernel(const Params p)
     if (tid == kConsumers) produce<WT>(p, lo, hi, ring, full, empty);
     return;
   }
-  const bool attends = b < p.H * p.S;
-  const int h_of = b / p.S, s_of = b % p.S;
+  const int wp = write_slot(p), S = split_count(p, wp);
+  const bool attends = b < p.H * S;
+  const int h_of = b / S, s_of = b % S;
   // the epoch bits of the block's barrier words, before its first arrival
   unsigned grid_epoch = 0, head_epoch = 0;
   if (tid == 0) {
     grid_epoch = ld_acquire(g_bar) >> 31;
     if (attends) head_epoch = ld_acquire(g_bar + kWordStride * (1 + h_of)) >> 31;
   }
-  const int n_v = attends ? attended_slots(p, s_of, vidx, reinterpret_cast<int*>(red)) : 0;
+  const int n_v = attends ? attended_slots(p, S, wp, s_of, vidx, reinterpret_cast<int*>(red)) : 0;
   Ring rg{ring, full, empty, part, 0, 0u};
   T* x = static_cast<T*>(p.x);
   T* qkv = static_cast<T*>(p.qkv);
@@ -795,9 +815,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1) stack_kernel(const Params p)
     layer_norm_in<T, VW>(x, D, n1s + ln, n1b + ln, xin, red);
     consume<T, WT, kQkvRope>(p, 0, l, lo[0], hi[0], xin, rg, qkv);
     sync_blocks(g_bar, G, b == 0, grid_epoch);
-    if (attends) attend_split<T>(p, l, h_of, s_of, vidx, n_v, xin, red, head_epoch);
+    if (attends) attend_split<T>(p, S, l, h_of, s_of, vidx, n_v, xin, red, head_epoch);
     sync_blocks(g_bar, G, b == 0, grid_epoch);
-    merge_and_append<T, VW>(p, l, xin);
+    merge_and_append<T, VW>(p, S, wp, l, xin);
     consume<T, WT, kResidual>(p, 1, l, lo[1], hi[1], xin, rg, x);
     sync_blocks(g_bar, G, b == 0, grid_epoch);
     layer_norm_in<T, VW>(x, D, n2s + ln, n2b + ln, xin, red);
@@ -817,18 +837,18 @@ struct Layout {
   size_t smem;
 };
 
-// Shared memory of one block of a `grid`-block launch with S attention
-// splits per head, within `optin` bytes: the weight ring (as many stages as
-// fit), its mbarriers, the input vector (or the attention scratch),
-// reduction space, the split's attended slots and the span's row partials
-// (span_start gives a block at most ceil(pairs / grid) pairs).
-cudaError_t layout(int optin, int es_t, int es_w, int D, int H, int F, int C, int grid, int S,
-                   Layout* out) {
+// Shared memory of one block of a `grid`-block launch with at most S
+// attention splits per head and at most n_s candidate slots a split, within
+// `optin` bytes: the weight ring (as many stages as fit), its mbarriers, the
+// input vector (or the attention scratch), reduction space, the split's
+// attended slots and the span's row partials (span_start gives a block at
+// most ceil(pairs / grid) pairs).
+cudaError_t layout(int optin, int es_t, int es_w, int D, int H, int F, int grid, int S,
+                   int n_s, Layout* out) {
   const int Dh = D / H, V = 16 / es_t;
   int stage = 2 * (D > F ? D : F) * es_w;  // a chunk holds a row pair of every product
   if (stage < kMinStageBytes) stage = kMinStageBytes;
   stage = (stage + 127) & ~127;
-  const int n_s = (C + S - 1) / S;
   int xin = 2 * Dh + 2 * S + ((n_s + 3) & ~3) + kConsumers * V + kConsumers;  // attention
   if (xin < F) xin = F;
   if (xin < 2 * D) xin = 2 * D;  // LayerNorm keeps x beside its output
@@ -884,7 +904,7 @@ cudaError_t plan_of(int dev, int D, int H, int F, int C, Plan* out) {
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
   Layout lay;
-  e = layout(optin, sizeof(T), sizeof(WT), D, H, F, C, sms, 1, &lay);  // one block per SM
+  e = layout(optin, sizeof(T), sizeof(WT), D, H, F, sms, 1, C, &lay);  // one block per SM
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(stack_kernel<T, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return e;
@@ -908,14 +928,18 @@ cudaError_t launch(Params p, cudaStream_t s) {
   Plan plan;
   e = plan_of<T, WT>(dev, p.D, p.H, p.F, p.C, &plan);
   if (e != cudaSuccess) return e;
-  // attention splits per head: about kSlotsPerSplit filled slots each
-  // (write_pos of them; the kernel finds the attended ones itself), at
-  // most grid / H; one split needs no head barrier
-  p.S = (p.write_pos + kSlotsPerSplit - 1) / kSlotsPerSplit;
-  if (p.S > plan.grid / p.H) p.S = plan.grid / p.H;
-  if (p.S < 1) p.S = 1;
+  // attention splits per head: the kernel takes about kSlotsPerSplit filled
+  // slots a split from the device write pointer (write_pos of them; it finds
+  // the attended ones itself), at most Smax = grid / H (or what the capacity
+  // needs); one split needs no head barrier. A split's candidates: at most
+  // kSlotsPerSplit while S grows with the pointer, then ceil(C / Smax).
+  p.Smax = (p.C + kSlotsPerSplit - 1) / kSlotsPerSplit;
+  if (p.Smax > plan.grid / p.H) p.Smax = plan.grid / p.H;
+  if (p.Smax < 1) p.Smax = 1;
+  int n_s = (p.C + p.Smax - 1) / p.Smax;
+  if (n_s < kSlotsPerSplit) n_s = kSlotsPerSplit < p.C ? kSlotsPerSplit : p.C;
   Layout lay;
-  e = layout(plan.optin, sizeof(T), sizeof(WT), p.D, p.H, p.F, p.C, plan.grid, p.S, &lay);
+  e = layout(plan.optin, sizeof(T), sizeof(WT), p.D, p.H, p.F, plan.grid, p.Smax, n_s, &lay);
   if (e != cudaSuccess) return e;
   p.stage_bytes = lay.stage_bytes;
   p.n_stages = lay.n_stages;
@@ -943,9 +967,10 @@ cudaError_t launch(Params p, cudaStream_t s) {
 // per-row scales in_s [L,3D], out_s [L,D], w1_s [L,F], w2_s [L,D]
 // (ignored otherwise). x [D] is the stack input on entry and its output on
 // return. Weights are row-major per layer: in_proj [L,3D,D], out_proj
-// [L,D,D], w1 [L,F,D], w2 [L,D,F]; norms [L,D]; caches [L,C,D]; pos [C] and
-// offset [1] int32 on the device; scratch holds 3D + F elements. Weights and
-// caches 16-byte aligned.
+// [L,D,D], w1 [L,F,D], w2 [L,D,F]; norms [L,D]; caches [L,C,D]; pos [C],
+// offset [1] and write_pos [1] (the slot of the append, 0 <= write_pos < C)
+// int32 on the device; scratch holds 3D + F elements. Weights and caches
+// 16-byte aligned.
 // One kernel launch on `stream`, on the current device. Returns its
 // cudaError_t: cudaErrorNotSupported for shapes the kernel does not take.
 extern "C" int decode_stack_run(int dtype, int quant, int L, int D, int H, int F, int C,
@@ -954,7 +979,7 @@ extern "C" int decode_stack_run(int dtype, int quant, int L, int D, int H, int F
                                 const void* out_s, const void* w1_s, const void* w2_s,
                                 const void* n1s, const void* n1b, const void* n2s,
                                 const void* n2b, void* cache_k, void* cache_v, const void* pos,
-                                const void* offset, int write_pos, float max_period,
+                                const void* offset, const void* write_pos, float max_period,
                                 void* scratch, void* stream) {
   const int Dh = D / H;
   Params p = {};
@@ -963,7 +988,6 @@ extern "C" int decode_stack_run(int dtype, int quant, int L, int D, int H, int F
   p.H = H;
   p.F = F;
   p.C = C;
-  p.write_pos = write_pos;
   p.rope_c = static_cast<float>(-log(static_cast<double>(max_period)) * 2.0 / Dh);
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
   p.x = x;
@@ -985,6 +1009,7 @@ extern "C" int decode_stack_run(int dtype, int quant, int L, int D, int H, int F
   p.cache_v = cache_v;
   p.pos = static_cast<const int*>(pos);
   p.offset = static_cast<const int*>(offset);
+  p.wp = static_cast<const int*>(write_pos);
   const size_t es = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
   p.qkv = scratch;
   p.g = static_cast<unsigned char*>(scratch) + 3 * static_cast<size_t>(D) * es;

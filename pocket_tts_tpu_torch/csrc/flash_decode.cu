@@ -19,11 +19,18 @@
 // Bound on the H100: bytes, the valid k and v rows read once (B=32,
 // att=200, H=16, Dh=64 in bf16: ~25 MB, ~7.4 us at 3.35 TB/s).
 //
+// The attended length att is read from device memory (a CUDA graph of
+// several steps replays with the length its own steps advance), so the
+// launch is planned for the most it may be, the capacity (at most 4096):
+// the split count and each block's shared memory. Every block reads att and
+// cuts [0, att) itself.
+//
 // Design. Each (b, h) row's attended slots [0, att) are cut into S
 // consecutive ranges, one block of a thread-block cluster each
 // (flash_splits.cuh: S a power of two up to the portable cluster size 8,
-// from B*H, att and the SM count, so that a long row is spread over several
-// SMs and the card gets several blocks per SM). A block of 128 threads
+// from B*H, the planned length and the SM count, so that a long row is
+// spread over several SMs and the card gets several blocks per SM). A
+// block of 128 threads
 // reads pos for its range and q, then streams its key rows and then its
 // value rows through a ring of 4 rounds in shared memory: 16-byte cp.async
 // copies of the attended slots only (a slot row at the cache's H*Dh
@@ -85,7 +92,8 @@ struct FdArgs {
   const int* pos;
   const int* offset;
   void* out;
-  int C, H, Dh, att, S, lps;
+  const int* att;  // [1] the attended length, clamped to [0, att_max]
+  int C, H, Dh, att_max, S, lps;
   float scale;
 };
 
@@ -109,9 +117,10 @@ __device__ __forceinline__ Split locate(const FdArgs& a, const cg::cluster_group
   s.b = row / a.H;
   s.h = row % a.H;
   s.rank = static_cast<int>(cluster.block_rank());
-  s.lo = fd_split_start(a.att, a.S, s.rank);
-  s.n = fd_split_start(a.att, a.S, s.rank + 1) - s.lo;
-  const int nmax = (a.att + a.S - 1) / a.S;
+  const int att = min(max(__ldg(a.att), 0), a.att_max);
+  s.lo = fd_split_start(att, a.S, s.rank);
+  s.n = fd_split_start(att, a.S, s.rank + 1) - s.lo;
+  const int nmax = (a.att_max + a.S - 1) / a.S;  // the plan's shared memory
   s.w = reinterpret_cast<float*>(tail);
   s.stats = s.w + nmax;
   s.parts = s.stats + 2;
@@ -439,27 +448,31 @@ cudaError_t prepare(int dtype, int B, int H, int Dh, int att, const void* ck, co
                     : kernel_for<__nv_bfloat16>(*p, *dev, kern);
 }
 
-bool takes(int Dh, int C, int att) {
-  return Dh > 0 && Dh % 2 == 0 && Dh <= 128 && att >= 0 && att <= C && att <= kMaxAtt;
-}
+bool takes(int Dh, int C) { return Dh > 0 && Dh % 2 == 0 && Dh <= 128 && C >= 0; }
+
+// The launch is planned for the most slots a call may attend.
+int planned_att(int C) { return C < kMaxAtt ? C : kMaxAtt; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, caches and out alike).
 // q/k_new/v_new: [B,H,Dh] with the given batch strides (elements), heads
 // contiguous; caches [B,C,H,Dh] contiguous; pos [B,C] and offset [B] int32;
-// out [B,H,Dh]. Even Dh <= 128, 0 <= att <= min(C, 4096). One launch on
-// `stream`; returns its cudaError_t (cudaErrorInvalidValue for a case it does
-// not take, the launch's own error for one the card refuses).
-extern "C" int flash_decode_run(int dtype, int B, int H, int Dh, int C, int att, const void* q,
+// att [1] int32 on the device, the slots attended, 0 <= att <= min(C, 4096)
+// (clamped into that range); out [B,H,Dh]. Even Dh <= 128. One launch on
+// `stream`, planned for att = min(C, 4096); returns its cudaError_t
+// (cudaErrorInvalidValue for a case it does not take, the launch's own
+// error for one the card refuses).
+extern "C" int flash_decode_run(int dtype, int B, int H, int Dh, int C, const void* att,
+                                const void* q,
                                 long long q_sb, const void* kn, long long kn_sb, const void* vn,
                                 long long vn_sb, const void* ck, const void* cv, const void* pos,
                                 const void* offset, void* out, void* stream) {
-  if (!takes(Dh, C, att)) return cudaErrorInvalidValue;
+  if (!takes(Dh, C)) return cudaErrorInvalidValue;
   Plan p = {};
   const void* kern = nullptr;
   int dev = 0;
-  cudaError_t e = prepare(dtype, B, H, Dh, att, ck, cv, &p, &kern, &dev);
+  cudaError_t e = prepare(dtype, B, H, Dh, planned_att(C), ck, cv, &p, &kern, &dev);
   if (e != cudaSuccess) return e;
   FdArgs a;
   a.q = q;
@@ -476,7 +489,8 @@ extern "C" int flash_decode_run(int dtype, int B, int H, int Dh, int C, int att,
   a.C = C;
   a.H = H;
   a.Dh = Dh;
-  a.att = att;
+  a.att = static_cast<const int*>(att);
+  a.att_max = planned_att(C);
   a.S = p.splits;
   a.lps = p.lps;
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(Dh)));
@@ -491,13 +505,13 @@ extern "C" int flash_decode_run(int dtype, int B, int H, int Dh, int C, int att,
 // The launch flash_decode_run makes for these arguments, into plan[3]:
 // splits (the cluster's size), body (0 async, 1 narrow) and shared bytes
 // per block.
-extern "C" int flash_decode_plan(int dtype, int B, int H, int Dh, int C, int att, const void* ck,
+extern "C" int flash_decode_plan(int dtype, int B, int H, int Dh, int C, const void* ck,
                                  const void* cv, int* plan) {
-  if (!takes(Dh, C, att)) return cudaErrorInvalidValue;
+  if (!takes(Dh, C)) return cudaErrorInvalidValue;
   Plan p = {};
   const void* kern = nullptr;
   int dev = 0;
-  const cudaError_t e = prepare(dtype, B, H, Dh, att, ck, cv, &p, &kern, &dev);
+  const cudaError_t e = prepare(dtype, B, H, Dh, planned_att(C), ck, cv, &p, &kern, &dev);
   plan[0] = p.splits;
   plan[1] = p.body;
   plan[2] = static_cast<int>(p.smem);

@@ -245,7 +245,7 @@ def mha_step(
     masks: tuple[torch.Tensor, torch.Tensor] | None,
     *,
     num_heads: int,
-    att_len: int | None = None,
+    att_len: int | torch.Tensor | None = None,
     flash_ctx: tuple[torch.Tensor, torch.Tensor] | None = None,
     chunk_ctx: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -255,7 +255,7 @@ def mha_step(
     for the caller to append once per stack. Under tensor parallelism H =
     `num_heads` is the rank's own and `out` its partial out_proj sum. `att_len`: attend only the
     first att_len slots (every valid slot lies below it; `masks` were built
-    over those slots). `flash_ctx = (pos, offset)` routes the T=1 step to
+    over those slots; the flash route takes it as a device int32 [1]). `flash_ctx = (pos, offset)` routes the T=1 step to
     the flash-decode op (ops/flash_decode.py), which masks by the position
     map itself (no `masks`). `chunk_ctx = (pos_cache, pos_q, context,
     bias_chunks)` routes a long windowed block to `attend_windowed_chunked`."""

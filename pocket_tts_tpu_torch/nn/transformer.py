@@ -26,6 +26,12 @@ new rows into the state's k/v/pos tensors. A caller that must keep a state
 (a voice state reused by the next request) clones it first, as
 pipeline/tts.py does at chunk start.
 
+A T=1 step reads the write pointer from the device (`StackState.write_ptr`,
+or one filled in from the host's `write_pos`): the decode-stack and
+flash-decode kernels take it from device memory, and the step's append
+writes at it by index, so no host value of it is baked into a CUDA graph of
+several steps (pipeline/tts.py's step graphs).
+
 Under a mesh (`cfg.tp` set, parallel/mesh.py) the decode stack is refused,
 as the JAX package drops its packed stack under any mesh: a T=1 step takes
 the layer loop (flash decode and the gemv op at the rank's head count and
@@ -53,7 +59,7 @@ from pocket_tts_tpu_torch.nn.attention import (
 )
 from pocket_tts_tpu_torch.nn.linear import matmul_t
 from pocket_tts_tpu_torch.nn.rope import rope_tables
-from pocket_tts_tpu_torch.ops.flash_decode import flash_decode_takes
+from pocket_tts_tpu_torch.ops.flash_decode import device_int, flash_decode_takes
 from pocket_tts_tpu_torch.parallel.mesh import ModelGroup, copy_to_model, reduce_from_model
 
 Params = dict[str, Any]
@@ -86,8 +92,11 @@ class StackState:
         -1 marks empty slots and right-padding garbage (never attended).
     offset: [B] int32: per-row true stream position.
     write_pos: next slot to write, shared across rows. A host int (the JAX
-        package keeps a 0-d array): every append slices the cache at it, and
-        keeping it on the host spares a device read per step.
+        package keeps a 0-d array): a prompt's append slices the cache at
+        it, and keeping it on the host spares a device read per step.
+    write_ptr: the same pointer on the device (int32 [1]), which T=1 steps
+        read and advance there; None where only the host's is kept (the
+        step then fills one in from write_pos).
     """
 
     k: torch.Tensor
@@ -95,10 +104,12 @@ class StackState:
     pos: torch.Tensor
     offset: torch.Tensor
     write_pos: int
+    write_ptr: torch.Tensor | None = None
 
     def clone(self) -> "StackState":
         return StackState(self.k.clone(), self.v.clone(), self.pos.clone(),
-                          self.offset.clone(), self.write_pos)
+                          self.offset.clone(), self.write_pos,
+                          None if self.write_ptr is None else self.write_ptr.clone())
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -242,6 +253,24 @@ def append_kv(
                       write_pos=slot + T)
 
 
+def append_step(state: StackState, ks: torch.Tensor, vs: torch.Tensor,
+                wp: torch.Tensor) -> StackState:
+    """append_kv for one fully valid step ([L, B, 1, H, Dh]) at the device
+    write pointer `wp` (int32 [1]), in place and without a host read; both
+    pointers advance by one."""
+    C = state.k.shape[2]
+    if not 0 <= state.write_pos < C:  # the host's copy of the pointer
+        raise ValueError(f"append of 1 slot at write_pos {state.write_pos} overflows "
+                         f"capacity {C}")
+    idx = wp.long()
+    state.k.index_copy_(2, idx, ks.to(state.k.dtype))
+    state.v.index_copy_(2, idx, vs.to(state.v.dtype))
+    state.pos.index_copy_(1, idx, state.offset[:, None])
+    return StackState(k=state.k, v=state.v, pos=state.pos,
+                      offset=(state.offset + 1).to(torch.int32),
+                      write_pos=state.write_pos + 1, write_ptr=wp + 1)
+
+
 def shift_kv(state: StackState, ks: torch.Tensor, vs: torch.Tensor) -> StackState:
     """Sliding-window cache update: keep the most recent W slots by
     concat-and-crop (no write pointer, no wrap); any block length T per call,
@@ -279,7 +308,8 @@ def transformer_apply(
     the input is right-padded; offsets advance by it, write_pos by T.
     A T=1 step over the linear cache attends only the slots below the write
     pointer (the JAX package's `att_len`): slots fill in write order, so no
-    valid slot lies at or above it. A windowed block of T >= CHUNKED_MIN_T
+    valid slot lies at or above it. The flash-decode op and the append take
+    that pointer on the device (see StackState.write_ptr). A windowed block of T >= CHUNKED_MIN_T
     with a context attends in chunks (`attend_windowed_chunked`), its masks
     built once here for every layer.
     """
@@ -290,10 +320,13 @@ def transformer_apply(
     dh = cfg.d_model // cfg.num_heads
     att = None  # attended slots: all of them
     flash = False
+    wp = None  # the device write pointer of a T=1 step
     if not window and T == 1:
         if stack_takes(cfg, params, x):
             return decode_stack_apply(cfg, params, x, state)
-        att = min(state.write_pos, C)
+        att = min(state.write_pos, C)  # the host's copy: the route, the CPU's plain loop
+        wp = device_int(state.write_ptr if state.write_ptr is not None else state.write_pos,
+                        x.device)
         flash = cfg.context is None and flash_decode_takes(att, dh)
         if not flash and x.device.type != "cpu":
             raise NotImplementedError(
@@ -317,7 +350,8 @@ def transformer_apply(
     for layer in range(cfg.num_layers):
         h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
                                      state.k[layer], state.v[layer], tabs, masks,
-                                     att_len=att, flash_ctx=flash_ctx, chunk_ctx=chunk_ctx)
+                                     att_len=wp if flash else att, flash_ctx=flash_ctx,
+                                     chunk_ctx=chunk_ctx)
         ks.append(k_new)
         vs.append(v_new)
     ks = torch.stack(ks)
@@ -326,4 +360,6 @@ def transformer_apply(
         if increment is not None:
             raise ValueError("window caches take full (unpadded) blocks")
         return h, shift_kv(state, ks, vs)
+    if wp is not None and increment is None:
+        return h, append_step(state, ks, vs, wp)
     return h, append_kv(state, ks, vs, true_len=increment)

@@ -8,6 +8,11 @@ starts one `nvcc` per source at once (the build counts against the caller's
 time limit).
 
 No fallback: a missing `nvcc`, a failed build or a failed load raises.
+
+Every kernel counts the calls of its wrapper that launch it (`launches`).
+A CUDA graph replay makes no such call, so the step graphs
+(pipeline/step_graphs.py) record each graph's launches at capture
+(`launch_counts`) and add them per replay (`add_launches`).
 """
 
 from __future__ import annotations
@@ -52,7 +57,10 @@ class _Build:
 
 class CudaKernel:
     """One kernel library: its source, its lazily built and loaded `ctypes`
-    handle, and `launches`, the count of kernel-path calls of its wrapper."""
+    handle, and `launches`, the count of kernel-path calls of its wrapper
+    (plus the launches of the graph replays that ran it)."""
+
+    registry: dict[str, "CudaKernel"] = {}
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
         self.name = name
@@ -60,6 +68,7 @@ class CudaKernel:
         self._bind = bind
         self._lib: ctypes.CDLL | None = None
         self.launches = 0
+        CudaKernel.registry[name] = self
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -110,6 +119,17 @@ def build_all(kernels: list[CudaKernel]) -> tuple[float, dict[str, str]]:
     for k in kernels:
         k.load()
     return time.perf_counter() - t0, logs
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count, by name."""
+    return {name: k.launches for name, k in CudaKernel.registry.items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add `counts` (by kernel name) to the kernels' launch counts."""
+    for name, n in counts.items():
+        CudaKernel.registry[name].launches += n
 
 
 def check(err: int, what: str) -> None:

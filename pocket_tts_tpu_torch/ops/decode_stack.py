@@ -8,7 +8,12 @@ eps 1e-5), the in_proj GEMV with interleaved RoPE on q and k at position
 `offset`, attention over the slots with `(pos >= 0) & (pos <= offset)` plus
 the step's own k/v (f32 softmax, weights cast to the cache dtype before the
 value sum), out_proj and the residual, LN2, w1, exact-erf GELU, w2 and the
-residual; the new k/v row is written in place at slot `write_pos`.
+residual; the new k/v row is written in place at slot `write_pos`. The
+slot comes from device memory (an int32 [1] tensor; a host int is put on the
+device first), so a CUDA graph of several steps replays with the pointer
+its own steps advance: `decode_stack_apply` moves it on by one on the
+device. Only the slots below the pointer are attended (slots fill in write
+order, so no valid slot lies at or above it).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (csrc/decode_stack.cu); on a CPU tensor it runs `decode_stack_plain`, the same
@@ -59,6 +64,7 @@ from pocket_tts_tpu_torch.nn.transformer import (
     layer_step,
 )
 from pocket_tts_tpu_torch.ops.build import CudaKernel, check
+from pocket_tts_tpu_torch.ops.flash_decode import device_int
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PRODUCTS = ("in_proj", "out_proj", "w1", "w2")
@@ -70,7 +76,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     f = lib.decode_stack_run
     f.restype = ctypes.c_int
     f.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 17
-                  + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                  + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 KERNEL = CudaKernel("decode_stack", _bind)
@@ -85,7 +91,11 @@ def stack_takes(cfg: TransformerConfig, params: dict, x: torch.Tensor) -> bool:
     context or layer scale, whose four products are all plain or all int8,
     of a model on no mesh (the JAX package drops its packed stack under any
     mesh; a sharded model holds only its rank's heads and features)."""
-    B, T, _ = x.shape
+    return stack_takes_rows(cfg, params, x.shape[0], x.shape[1])
+
+
+def stack_takes_rows(cfg: TransformerConfig, params: dict, B: int, T: int) -> bool:
+    """`stack_takes` for a step of B rows and T positions."""
     quant = _quantized(params)
     return (B == 1 and T == 1 and cfg.context is None and cfg.layer_scale is None
             and cfg.tp is None and len(quant) in (0, len(_PRODUCTS)))
@@ -110,38 +120,46 @@ def _validate(cfg: TransformerConfig, params: dict, x: torch.Tensor,
     if len(set(dtypes.values())) != 1:
         raise NotImplementedError(f"decode_stack: mixed float dtypes {dtypes}")
     C = state.k.shape[2]
-    if not 0 <= state.write_pos < C:
+    if not 0 <= state.write_pos < C:  # the host's copy of the pointer
         raise ValueError(f"decode_stack: write_pos {state.write_pos} outside capacity {C}")
 
 
 def decode_stack_plain(cfg: TransformerConfig, params: dict, x: torch.Tensor,
                        cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
-                       offset: torch.Tensor, write_pos: int) -> torch.Tensor:
+                       offset: torch.Tensor, write_pos: int | torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: x [1, 1, D] -> h [1, 1, D];
     the step's k/v rows are written into cache_k/v [L, 1, C, H, Dh] at
-    `write_pos`. Its products stay plain on the card too (no gemv kernel)."""
+    `write_pos` (int32 [1] on the device, or a host int), attending the
+    slots below it. Its products stay plain on the card too (no gemv
+    kernel). No host read of the pointer."""
     dh = cfg.d_model // cfg.num_heads
+    wp = device_int(write_pos, x.device)
     tabs = rope_tables(offset, 1, dh, cfg.max_period, batch=1)
-    masks = decode_masks(pos, offset, 1, None)
+    mc, ms = decode_masks(pos, offset, 1, None)
+    below = torch.arange(pos.shape[1], device=pos.device) < wp
+    masks = (mc & below, ms)
+    idx = wp.long()
     h = x
     with _plain_products():
         for layer in range(cfg.num_layers):
             h, k_new, v_new = layer_step(cfg, h, layer_params(params, layer),
                                          cache_k[layer], cache_v[layer], tabs, masks)
-            cache_k[layer, :, write_pos] = k_new[:, 0].to(cache_k.dtype)
-            cache_v[layer, :, write_pos] = v_new[:, 0].to(cache_v.dtype)
+            cache_k[layer].index_copy_(1, idx, k_new.to(cache_k.dtype))
+            cache_v[layer].index_copy_(1, idx, v_new.to(cache_v.dtype))
     return h
 
 
 def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
                        cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
-                       offset: torch.Tensor, write_pos: int) -> torch.Tensor:
+                       offset: torch.Tensor, write_pos: int | torch.Tensor) -> torch.Tensor:
     lib = KERNEL.load()
     quant = bool(_quantized(params))
     weights = [params[k]["q"] if quant else params[k] for k in _PRODUCTS]
     scales = [params[k]["s"] for k in _PRODUCTS] if quant else []
     norms = [params[k] for k in _NORMS]
+    wp = device_int(write_pos, x.device)
     tensors = {"x": x, "cache_k": cache_k, "cache_v": cache_v, "pos": pos, "offset": offset,
+               "write_pos": wp,
                **dict(zip(_PRODUCTS, weights)), **dict(zip(_NORMS, norms)),
                **{f"{k} scales": t for k, t in zip(_PRODUCTS, scales)}}
     for name, t in tensors.items():
@@ -166,7 +184,7 @@ def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
         *((t.data_ptr() for t in scales) if quant else [None] * len(_PRODUCTS)),
         *(t.data_ptr() for t in norms),
         cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), offset.data_ptr(),
-        write_pos, float(cfg.max_period), scratch.data_ptr(),
+        wp.data_ptr(), float(cfg.max_period), scratch.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err == _NOT_SUPPORTED:
         raise NotImplementedError(
@@ -180,7 +198,7 @@ def _decode_stack_cuda(cfg: TransformerConfig, params: dict, x: torch.Tensor,
 
 def decode_stack(cfg: TransformerConfig, params: dict, x: torch.Tensor,
                  cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
-                 offset: torch.Tensor, write_pos: int) -> torch.Tensor:
+                 offset: torch.Tensor, write_pos: int | torch.Tensor) -> torch.Tensor:
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
     fn = decode_stack_plain if x.device.type == "cpu" else _decode_stack_cuda
     return fn(cfg, params, x, cache_k, cache_v, pos, offset, write_pos)
@@ -190,12 +208,14 @@ def decode_stack_apply(cfg: TransformerConfig, params: dict, x: torch.Tensor,
                        state: StackState) -> tuple[torch.Tensor, StackState]:
     """transformer_apply's T=1 decode body: x [1, 1, D] -> (h [1, 1, D], state).
 
-    The k/v row goes into the state's caches in place at write_pos; the pos
-    map is updated in place and offset/write_pos advance like append_kv for
-    one fully valid step."""
+    The k/v row goes into the state's caches in place at the write pointer
+    (`state.write_ptr` on the device, or made from the host's write_pos);
+    the pos map is updated in place and offset and both pointers advance
+    like append_kv for one fully valid step, without a host read."""
     _validate(cfg, params, x, state)
-    wp = state.write_pos
+    wp = device_int(state.write_ptr if state.write_ptr is not None else state.write_pos,
+                     x.device)
     h = decode_stack(cfg, params, x, state.k, state.v, state.pos, state.offset, wp)
-    state.pos[:, wp] = state.offset
-    return h, StackState(k=state.k, v=state.v, pos=state.pos,
-                         offset=state.offset + 1, write_pos=wp + 1)
+    state.pos.index_copy_(1, wp.long(), state.offset[:, None])
+    return h, StackState(k=state.k, v=state.v, pos=state.pos, offset=state.offset + 1,
+                         write_pos=state.write_pos + 1, write_ptr=wp + 1)

@@ -7,7 +7,11 @@ pos [B, C] int32, offset [B] int32; a slot is valid iff
 pos >= 0 and pos <= offset; the step's own key/value is always valid; the
 softmax is f32 with scale 1/sqrt(Dh); the output is [B, H, Dh] in v's dtype.
 `att_len`: attend only the first att_len slots (the caller guarantees every
-valid slot lies below it; nn/transformer.py passes the write pointer).
+valid slot lies below it; nn/transformer.py passes the write pointer), a
+host int or an int32 [1] tensor on the device. The kernel reads it from
+device memory, so a CUDA graph of several steps replays with the length its
+own steps advance; it plans each launch for the capacity (at most MAX_ATT)
+and cuts the attended prefix over that plan's blocks when it runs.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (csrc/flash_decode.cu); on a CPU tensor it runs `flash_decode_plain`, the
@@ -47,12 +51,12 @@ BODIES = {0: "async", 1: "narrow"}  # rows of 2^k 16-byte pieces by cp.async; el
 def _bind(lib: ctypes.CDLL) -> None:
     f = lib.flash_decode_run
     f.restype = ctypes.c_int
-    f.argtypes = ([ctypes.c_int] * 6
+    f.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p]
                   + [ctypes.c_void_p, ctypes.c_longlong] * 3
                   + [ctypes.c_void_p] * 6)
     p = lib.flash_decode_plan
     p.restype = ctypes.c_int
-    p.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    p.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
 
 
 KERNEL = CudaKernel("flash_decode", _bind)
@@ -64,20 +68,38 @@ def flash_decode_takes(att: int, head_dim: int) -> bool:
     return head_dim % 2 == 0 and head_dim <= 128 and 0 <= att <= MAX_ATT
 
 
+def device_int(value: int | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A write pointer or length as the kernels read it: int32 [1] on
+    `device` (a host int is filled in on the device)."""
+    if isinstance(value, torch.Tensor):
+        if value.shape != (1,) or value.dtype != torch.int32:
+            raise ValueError(f"device int {tuple(value.shape)} {value.dtype}, not int32 [1]")
+        return value
+    return torch.full((1,), value, dtype=torch.int32, device=device)
+
+
 def _attended(C: int, att_len: int | None) -> int:
     return C if att_len is None else min(att_len, C)
 
 
 def flash_decode_plain(q, cache_k, cache_v, k_new, v_new, pos, offset,
-                       att_len: int | None = None) -> torch.Tensor:
+                       att_len: int | torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the JAX package's
-    flash_decode_ref, with att_len as a slice)."""
-    att = _attended(cache_k.shape[1], att_len)
-    cache_k, cache_v, pos = cache_k[:, :att], cache_v[:, :att], pos[:, :att]
+    flash_decode_ref): a host att_len slices the cache; a device one masks
+    the slots at or past it and zeroes their values (no host read)."""
+    below = None
+    if isinstance(att_len, torch.Tensor):
+        below = torch.arange(cache_k.shape[1], device=pos.device) < device_int(att_len, q.device)
+        cache_v = torch.where(below[None, :, None, None], cache_v, 0)
+    else:
+        att = _attended(cache_k.shape[1], att_len)
+        cache_k, cache_v, pos = cache_k[:, :att], cache_v[:, :att], pos[:, :att]
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf = q.float()
     lc = torch.einsum("bhd,bchd->bhc", qf, cache_k.float()) * scale
     valid = (pos >= 0) & (pos <= offset[:, None])
+    if below is not None:
+        valid = valid & below
     lc = torch.where(valid[:, None, :], lc, NEG)
     ls = torch.einsum("bhd,bhd->bh", qf, k_new.float())[..., None] * scale
     w = torch.softmax(torch.cat([lc, ls], dim=-1), dim=-1)
@@ -95,12 +117,17 @@ def _rows(name: str, t: torch.Tensor, B: int, H: int, Dh: int) -> int:
 
 
 def _flash_decode_cuda(q, cache_k, cache_v, k_new, v_new, pos, offset,
-                       att_len: int | None = None) -> torch.Tensor:
+                       att_len: int | torch.Tensor | None = None) -> torch.Tensor:
     B, C, H, Dh = cache_k.shape
-    att = _attended(C, att_len)
-    if not flash_decode_takes(att, Dh):
+    if isinstance(att_len, torch.Tensor):  # the caller keeps it <= MAX_ATT
+        att = device_int(att_len, q.device)
+        host_att = min(C, MAX_ATT)
+    else:
+        host_att = _attended(C, att_len)
+        att = device_int(host_att, q.device)
+    if not flash_decode_takes(host_att, Dh):
         raise NotImplementedError(
-            f"flash_decode kernel: head dim {Dh} (even, <= 128) or {att} attended "
+            f"flash_decode kernel: head dim {Dh} (even, <= 128) or {host_att} attended "
             f"slots (<= {MAX_ATT})")
     named = {"q": q, "cache_k": cache_k, "cache_v": cache_v, "k_new": k_new,
              "v_new": v_new, "pos": pos, "offset": offset}
@@ -121,7 +148,7 @@ def _flash_decode_cuda(q, cache_k, cache_v, k_new, v_new, pos, offset,
     lib = KERNEL.load()
     out = torch.empty((B, H, Dh), dtype=v_new.dtype, device=q.device)
     err = lib.flash_decode_run(
-        _DTYPES[q.dtype], B, H, Dh, C, att, q.data_ptr(), strides[0], k_new.data_ptr(),
+        _DTYPES[q.dtype], B, H, Dh, C, att.data_ptr(), q.data_ptr(), strides[0], k_new.data_ptr(),
         strides[1], v_new.data_ptr(), strides[2], cache_k.data_ptr(), cache_v.data_ptr(),
         pos.data_ptr(), offset.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -131,21 +158,21 @@ def _flash_decode_cuda(q, cache_k, cache_v, k_new, v_new, pos, offset,
 
 
 def plan(q, cache_k, cache_v, k_new, v_new, pos, offset,
-         att_len: int | None = None) -> dict:
+         att_len: int | torch.Tensor | None = None) -> dict:
     """How `_flash_decode_cuda` launches for these CUDA tensors: `splits`
     (blocks per (b, h) row, the cluster's size), `body` ("async" or "narrow")
-    and shared-memory `smem` bytes per block."""
+    and shared-memory `smem` bytes per block. The plan is the capacity's,
+    whatever att_len is."""
     B, C, H, Dh = cache_k.shape
-    att = _attended(C, att_len)
     out = (ctypes.c_int * 3)()
-    err = KERNEL.load().flash_decode_plan(_DTYPES[q.dtype], B, H, Dh, C, att,
+    err = KERNEL.load().flash_decode_plan(_DTYPES[q.dtype], B, H, Dh, C,
                                           cache_k.data_ptr(), cache_v.data_ptr(), out)
     check(err, "flash_decode_plan")
     return dict(splits=out[0], body=BODIES[out[1]], smem=out[2])
 
 
 def flash_decode(q, cache_k, cache_v, k_new, v_new, pos, offset,
-                 att_len: int | None = None) -> torch.Tensor:
+                 att_len: int | torch.Tensor | None = None) -> torch.Tensor:
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
     fn = flash_decode_plain if q.device.type == "cpu" else _flash_decode_cuda
     return fn(q, cache_k, cache_v, k_new, v_new, pos, offset, att_len)

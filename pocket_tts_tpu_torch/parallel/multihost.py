@@ -168,7 +168,13 @@ class ControlPlane:
     follower while rank 0 waits in a collective of the data plane, which on
     NCCL does not end by itself.
     An op is (name, meta, blob): a JSON-able dict and raw bytes; one with
-    neither (stop, health) is its header alone."""
+    neither (stop, health) is its header alone. Rank 0's sends on `ops` are
+    waited for `health_timeout` at most too: a gloo send ends only when its
+    peer receives, so a follower that is alive but not receiving (stuck,
+    or stopped) would hold rank 0 for the group's timeout. A send left
+    pending that way also keeps rank 0's process from exiting (gloo joins
+    its worker threads), so `stop` sends only to followers that still beat
+    (`followers_beat`)."""
 
     OPS = ("stop", "health", "tts")
 
@@ -227,6 +233,23 @@ class ControlPlane:
         if self.size > 1:
             self._start(run, "control-plane-watch")
 
+    def followers_beat(self, timeout: float) -> bool:
+        """Rank 0: whether every follower's heartbeat moves within `timeout`
+        seconds (a live follower beats every BEAT_S)."""
+        try:
+            seen = {r: self._store.add(self._beat_key(r), 0) for r in range(1, self.size)}
+            deadline = time.monotonic() + timeout
+            while seen:
+                seen = {r: n for r, n in seen.items()
+                        if self._store.add(self._beat_key(r), 0) == n}
+                if seen and time.monotonic() > deadline:
+                    return False
+                if seen:
+                    time.sleep(BEAT_S / 10)
+        except Exception:  # noqa: BLE001 — the store is this process's own: gone, not alive
+            return False
+        return True
+
     def close(self) -> None:
         """End this process's heartbeat or watch, and wait for its thread
         (a thread left inside a store call at exit aborts the process)."""
@@ -241,10 +264,14 @@ class ControlPlane:
             raise ControlPlaneError(f"control plane: {e}") from e
 
     def send(self, op: str, meta: dict | None = None, blob: bytes = b"") -> None:
-        """Rank 0: broadcast one op to every follower."""
+        """Rank 0: broadcast one op to every follower; the header's send is
+        waited for `health_timeout` at most (its payload goes on `ctl`,
+        which has that timeout of its own)."""
         text = json.dumps(meta).encode() if meta else b""
         header = torch.tensor([self.OPS.index(op), len(text), len(blob)], dtype=torch.int64)
-        self._call(dist.broadcast, header, src=0, group=self.ops)
+        timeout = datetime.timedelta(seconds=self.health_timeout)
+        self._call(lambda: dist.broadcast(header, src=0, group=self.ops,
+                                          async_op=True).wait(timeout=timeout))
         payload = text + blob
         if payload:
             self._call(dist.broadcast, torch.frombuffer(bytearray(payload), dtype=torch.uint8),

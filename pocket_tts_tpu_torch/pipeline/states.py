@@ -99,28 +99,50 @@ def import_model_state(source: str | Path, capacity: int | None = None,
     return state
 
 
+def place_states(dst: StackState, states: list[StackState]) -> int:
+    """The rows of `states`, in order, into `dst`'s tensors: each row's
+    slots first, in dst's dtype, the slots past them cleared (zeros, pos
+    -1), and its offset. The one layout rule of a working cache (growth,
+    batching, the step graphs' buffers). Returns the merged write pointer:
+    the largest, so appends land on fresh slots for every row."""
+    b = 0
+    for s in states:
+        r, c = s.offset.shape[0], s.k.shape[2]
+        for src, out in ((s.k, dst.k), (s.v, dst.v)):
+            out[:, b:b + r, :c].copy_(src)
+            out[:, b:b + r, c:].zero_()
+        dst.pos[b:b + r, :c].copy_(s.pos)
+        dst.pos[b:b + r, c:] = -1
+        dst.offset[b:b + r].copy_(s.offset)
+        b += r
+    if b != dst.offset.shape[0]:
+        raise ValueError(f"{b} rows for a state of {dst.offset.shape[0]}")
+    return max(s.write_pos for s in states)
+
+
+def empty_state(like: StackState, rows: int, capacity: int,
+                dtype: torch.dtype | None = None) -> StackState:
+    """Uninitialised tensors of `like`'s geometry for `rows` rows and
+    `capacity` slots (place_states fills them)."""
+    L, _, _, H, Dh = like.k.shape
+    dev, dtype = like.k.device, dtype or like.k.dtype
+    return StackState(
+        k=torch.empty((L, rows, capacity, H, Dh), dtype=dtype, device=dev),
+        v=torch.empty((L, rows, capacity, H, Dh), dtype=dtype, device=dev),
+        pos=torch.empty((rows, capacity), dtype=torch.int32, device=dev),
+        offset=torch.empty((rows,), dtype=torch.int32, device=dev),
+        write_pos=0,
+    )
+
+
 def expand_state(state: StackState, capacity: int) -> StackState:
     """Grow (or keep) the cache capacity: zeros in the new slots, pos = -1.
     Returns the same state when it is already large enough."""
-    cur = state.k.shape[2]
-    if cur >= capacity:
+    if state.k.shape[2] >= capacity:
         return state
-    pad = capacity - cur
-
-    def grow(t):
-        z = torch.zeros((t.shape[0], t.shape[1], pad, *t.shape[3:]), dtype=t.dtype,
-                        device=t.device)
-        return torch.cat([t, z], dim=2)
-
-    return StackState(
-        k=grow(state.k),
-        v=grow(state.v),
-        pos=torch.cat([state.pos, torch.full((state.pos.shape[0], pad), -1,
-                                             dtype=state.pos.dtype, device=state.pos.device)],
-                      dim=1),
-        offset=state.offset,
-        write_pos=state.write_pos,
-    )
+    out = empty_state(state, state.offset.shape[0], capacity)
+    out.write_pos = place_states(out, [state])
+    return out
 
 
 def batch_states(states: list[StackState], capacity: int) -> StackState:
@@ -129,11 +151,7 @@ def batch_states(states: list[StackState], capacity: int) -> StackState:
     Rows keep their own slot layouts (pos maps them); the merged write
     pointer is the max, so appends land on fresh slots for every row. The
     result is new tensors: the callers' states are never written."""
-    expanded = [expand_state(s, capacity) for s in states]
-    return StackState(
-        k=torch.cat([s.k for s in expanded], dim=1),
-        v=torch.cat([s.v for s in expanded], dim=1),
-        pos=torch.cat([s.pos for s in expanded], dim=0),
-        offset=torch.cat([s.offset for s in expanded]),
-        write_pos=max(s.write_pos for s in expanded),
-    )
+    C = max([capacity] + [s.k.shape[2] for s in states])
+    out = empty_state(states[0], sum(s.offset.shape[0] for s in states), C)
+    out.write_pos = place_states(out, states)
+    return out

@@ -1,0 +1,473 @@
+"""The block loop of a chunk, and on the card each block of K frames as one
+CUDA graph replay: the port's counterpart of the JAX package's compiled
+decode step (`_fused_step_fn` for K=1 and `_multi_step_fn` for K>1, under
+`jax.jit` in pocket_tts_tpu/pipeline/tts.py).
+
+A block is K FlowLM decode steps (each with its flow head), `project_latent`
+and the Mimi decoder over the block's latents (`TTSModel._decode_block`),
+with the flow noise drawn on the device (`TTSModel._noise`, a fixed amount
+of work) or copied in from a `noise_source`. Every chunk (`_generate_chunk`,
+`generate_audio_batch`) decodes in a `Lane`: the buffers of its B rows. On
+the card an unsharded model captures each block once per key and replays
+it: one replay, one copy of the block's audio and EOS flags (packed into one
+f32 tensor) into pinned host memory, one wait. On the CPU and under a mesh
+(whose step holds collectives) the lane calls the same body op by op.
+
+Buffers. A graph reads and writes fixed addresses, so a lane holds the
+FlowLM caches of a capacity bucket (a `_Slab`: k, v, pos, offset and the
+device write pointer), the Mimi decoder state, the previous latent, the
+rows' BOS flags and the flow-noise generator. A chunk copies its voice
+state into a slab (the working copy), and crossing a capacity bucket copies
+the caches into the next slab (`states.place_states` lays out both). The
+step's KV append and the decode-stack and flash-decode kernels read the
+write pointer from the device and the graph advances it there, so one graph
+serves every position of its capacity; the host keeps its own copy of the
+pointer, advances it by K per block and checks the capacity before each.
+Inside a block the new offset, pointer, latent and Mimi state are copied
+back into the lane's buffers (a few KB a row). A lane is held by one chunk
+at a time: a second live chunk of the same B (two interleaved streams)
+takes a lane of its own.
+
+Memory. The K graphs of one slab share one memory pool. A graphed lane
+keeps the slabs it reached, with their graphs, for the chunks after it,
+within `StepGraphs.budget` bytes (caches, pools and the lanes' own
+buffers) over all of a model's lanes: before a slab is made, after a chunk
+leaves one for the next bucket, and when a chunk ends, the idle slabs go,
+least recently used first, with their graphs and pools, and a lane left
+with none goes too. The slab a running chunk decodes in is never dropped,
+so a chunk holds what the op-by-op loop held (its caches, and the next
+bucket's while it grows) plus what the budget keeps. The budget is
+KEEP_FRACTION of the card's memory unless set; 0 keeps nothing between
+chunks. A lane run op by op keeps nothing either.
+
+Keys: (K, C) within a lane of B rows, and what a graph bakes in: lsd steps,
+the EOS threshold, and the noise (drawn on the device with its temperature
+and clamp, or injected). A graph also bakes in the weights' addresses: the
+lanes belong to the model's `params` and `mimi_params` as they were at
+capture, and a model given other ones (the quantization sweep swaps int8
+configurations into one model) drops every lane first.
+
+Capture. Before a key's capture the block runs once op by op on the
+capture's stream as its warm-up (the libraries' lazy set-up, such as a
+thread's first cuDNN handle or a cuBLAS workspace for the stream, cannot
+be captured). The warm-up reads the lane's caches and writes only the K
+slots the block is about to write (the replay writes them again before any
+step attends them); the offset, pointer, Mimi state, latent and BOS flags
+it runs on are copies, and the device noise comes from a throwaway
+generator, so the warm-up changes no state the chunk reads.
+
+Launch counts: a kernel wrapper counts its Python calls. The warm-up's
+calls launch their kernels and stay counted (`warm_ups` counts its decode
+steps); a capture's calls launch nothing and are taken back, and are kept
+as the graph's launches per replay, which each replay adds
+(ops/build.add_launches).
+
+A capture that fails raises: there is no op-by-op carry-on on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import torch
+
+from pocket_tts_tpu_torch.core.tree import tree_leaves, tree_map
+from pocket_tts_tpu_torch.models.mimi import init_decoder_state
+from pocket_tts_tpu_torch.nn.transformer import StackState, local_heads
+from pocket_tts_tpu_torch.ops.build import add_launches, launch_counts
+from pocket_tts_tpu_torch.ops.decode_stack import stack_takes_rows
+from pocket_tts_tpu_torch.ops.flash_decode import MAX_ATT
+from pocket_tts_tpu_torch.pipeline.states import place_states
+
+KEEP_FRACTION = 0.25  # of the card's memory: the default budget of idle slabs
+warm_ups = {"steps": 0}  # decode steps run by the captures' warm-ups (every model)
+
+
+def pack_block(flags: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+    """A block's EOS flags [K, B] and audio [K, B, 1, S] as one f32 tensor
+    [K, B, S + 1] (the flags last), so one copy brings both to the host."""
+    K, B = flags.shape
+    return torch.cat([audio.reshape(K, B, -1).float(), flags.float()[..., None]], dim=-1)
+
+
+def unpack_block(out: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """pack_block's host copy -> (flags [K, B] bool, audio [K, B, S] f32)."""
+    return out[..., -1] > 0.5, out[..., :-1]
+
+
+@dataclasses.dataclass
+class _Slab:
+    """The FlowLM caches of one capacity C, the memory pool of the graphs
+    captured on them, and when a chunk last took them."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    offset: torch.Tensor
+    wp: torch.Tensor  # the device write pointer, int32 [1]
+    pool: tuple | None = None  # made at the first capture
+    pool_bytes: int = 0  # the pool's growth over its captures
+    used: int = 0
+
+    def state(self, write_pos: int) -> StackState:
+        return StackState(self.k, self.v, self.pos, self.offset, write_pos, self.wp)
+
+    @property
+    def nbytes(self) -> int:
+        return self.pool_bytes + sum(t.numel() * t.element_size()
+                                     for t in (self.k, self.v, self.pos, self.offset, self.wp))
+
+
+class _BlockGraph:
+    """One captured block of K frames: its graph, its injected-noise input
+    (or None), its output, the pinned host buffer the output is copied to,
+    and the kernel launches one replay makes."""
+
+    def __init__(self, lane: "Lane", K: int, injected: bool):
+        model = lane.model
+        dev = model.device
+        self.noise = (torch.zeros((K, lane.B, model.specs.ldim), dtype=torch.float32,
+                                  device=dev) if injected else None)
+        stream = lane.owner.stream
+        graph = torch.cuda.CUDAGraph()
+        if not injected:  # each replay advances the lane's generator
+            graph.register_generator_state(lane.gen)
+        if lane.slab.pool is None:
+            lane.slab.pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            lane.warm_up(K, self.noise)
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        warm_ups["steps"] += K
+        self.warmup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # as the capture does: what the pool adds is its growth
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=lane.slab.pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.out = lane.block(K, self.noise)
+        finally:  # a capture launches nothing
+            after = launch_counts()
+            add_launches({k: before[k] - after[k] for k in after})
+        self.capture_s = time.perf_counter() - t0
+        lane.slab.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.graph = graph
+        self.host = torch.empty(self.out.shape, dtype=torch.float32, pin_memory=True)
+        self.done = torch.cuda.Event()
+        self.replays = 0
+
+    def replay(self) -> np.ndarray:
+        """Replay, copy the output to the host, wait once; a host copy of it."""
+        self.graph.replay()
+        add_launches(self.launches)
+        self.replays += 1
+        self.host.copy_(self.out, non_blocking=True)
+        self.done.record()
+        self.done.synchronize()
+        return self.host.numpy().copy()
+
+
+class Lane:
+    """The buffers one chunk of B rows decodes in, and the block graphs
+    captured on them (see the module docstring). `graphed`: replay each
+    block, else call its body op by op. Op by op under a mesh the lane
+    holds this rank's `rows` of a batch of `B_noise` rows, whose noise is
+    drawn whole and sliced."""
+
+    def __init__(self, owner: "StepGraphs", B: int, graphed: bool,
+                 rows: slice = slice(None), B_noise: int | None = None):
+        model = owner.model
+        dev = model.device
+        self.owner, self.model, self.B, self.graphed = owner, model, B, graphed
+        self.rows, self.B_noise = rows, B if B_noise is None else B_noise
+        self.busy = False
+        self.noise_source = None
+        self.slabs: dict[int, _Slab] = {}
+        self.slab: _Slab | None = None
+        self.write_pos = 0  # the host's copy of the device write pointer
+        self.mimi = init_decoder_state(model.mimi_specs, B, model._dtype, dev)
+        self.prev = torch.zeros((B, model.specs.ldim), dtype=torch.float32, device=dev)
+        self.is_bos = torch.ones((B,), dtype=torch.bool, device=dev)
+        self.gen = torch.Generator(device=dev)
+        self.graphs: dict[tuple, _BlockGraph] = {}
+        # a T=1 step of these rows takes the flash-decode kernel (not the
+        # decode stack): its attended length must stay within MAX_ATT
+        self.flash = graphed and not stack_takes_rows(model.specs.transformer,
+                                                      model.params["transformer"], B, 1)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the lane's slabs and of its own buffers."""
+        own = tree_leaves(self.mimi) + [self.prev, self.is_bos]
+        return (sum(s.nbytes for s in self.slabs.values())
+                + sum(t.numel() * t.element_size() for t in own))
+
+    def start(self, seed: int | None, noise_source) -> None:
+        """A chunk's noise: `noise_source`, or the generator seeded with `seed`."""
+        self.noise_source = noise_source
+        if noise_source is None:
+            self.gen.manual_seed(seed)
+
+    def _slab(self, C: int) -> _Slab:
+        """The slab of C slots, made (after room is made for it) if new."""
+        slab = self.slabs.get(C)
+        if slab is None:
+            cfg, m = self.model.specs.transformer, self.model
+            shape = (cfg.num_layers, self.B, C, local_heads(cfg), cfg.d_model // cfg.num_heads)
+
+            def make() -> _Slab:
+                return _Slab(k=torch.empty(shape, dtype=m._dtype, device=m.device),
+                             v=torch.empty(shape, dtype=m._dtype, device=m.device),
+                             pos=torch.empty((self.B, C), dtype=torch.int32, device=m.device),
+                             offset=torch.empty((self.B,), dtype=torch.int32, device=m.device),
+                             wp=torch.zeros((1,), dtype=torch.int32, device=m.device))
+
+            if self.graphed:
+                self.owner.make_room(2 * int(np.prod(shape)) * m._dtype.itemsize
+                                     + 4 * self.B * C)
+            try:
+                slab = make()
+            except torch.cuda.OutOfMemoryError:
+                self.owner.make_room(0, budget=0)  # every idle slab goes first
+                slab = make()
+            self.slabs[C] = slab
+        slab.used = self.owner.tick()
+        return slab
+
+    def load(self, states: list[StackState] | StackState, capacity: int) -> StackState:
+        """The working copy: each row's voice state into the slab of
+        `capacity` slots (at least each state's own), in the model's dtype
+        (states.place_states). Returns the slab as a StackState."""
+        rows = states if isinstance(states, list) else [states]
+        C = max([capacity] + [s.k.shape[2] for s in rows])
+        with self.owner.lock:
+            self.slab = None  # nothing of the last chunk is held for this one
+            self.slab = self._slab(C)
+            if not self.graphed:
+                self.slabs = {C: self.slab}
+        self.write_pos = place_states(self.slab.state(0), rows)
+        return self.state()
+
+    def state(self) -> StackState:
+        """The lane's FlowLM state (views of its buffers)."""
+        return self.slab.state(self.write_pos)
+
+    def begin(self, lm: StackState) -> None:
+        """Start the blocks from `lm` (the prompt pass's state over the
+        slab): its offset and pointers, a fresh Mimi state, BOS on every row."""
+        if lm.k is not self.slab.k:
+            raise ValueError("the prompt pass did not run on the lane's caches")
+        self.slab.offset.copy_(lm.offset)
+        self.slab.wp.fill_(lm.write_pos)
+        self.write_pos = lm.write_pos
+        fresh = init_decoder_state(self.model.mimi_specs, self.B, self.model._dtype,
+                                   self.model.device)
+        for dst, src in zip(tree_leaves(self.mimi), tree_leaves(fresh)):
+            dst.copy_(src)
+        self.prev.zero_()
+        self.is_bos.fill_(True)
+
+    def grow(self, capacity: int) -> None:
+        """Move the caches to the slab of `capacity` slots (a larger bucket):
+        expand_state's layout, into the lane's own buffers. The old slab goes
+        at once op by op, and graphed when the budget has no room for it."""
+        old = self.slab
+        if capacity <= old.k.shape[2]:
+            return
+        with self.owner.lock:
+            new = self._slab(capacity)
+            place_states(new.state(0), [old.state(self.write_pos)])
+            new.wp.copy_(old.wp)
+            self.slab = new
+            if not self.graphed:
+                self.slabs = {capacity: new}
+            else:
+                self.owner.make_room(0)
+
+    def warm_up(self, K: int, noise: torch.Tensor | None) -> None:
+        """The block once, op by op, before its capture (see the module
+        docstring): on the lane's caches, whose K slots from the write
+        pointer it writes, and on copies of everything else it would change."""
+        m = self.model
+        s = self.slab
+        if noise is None:
+            gen = torch.Generator(device=m.device).manual_seed(0)
+            noise = m._noise(gen, (K, self.B, m.specs.ldim))
+        lm = StackState(s.k, s.v, s.pos, s.offset.clone(), self.write_pos, s.wp.clone())
+        mimi = tree_map(torch.clone, self.mimi)
+        m._decode_block(lm, mimi, self.prev.clone(), self.is_bos.clone(), noise)
+
+    def block(self, K: int, noise: torch.Tensor | None) -> torch.Tensor:
+        """The body a graph holds: noise (drawn here when None), the block,
+        the new state copied back into the lane's buffers; returns
+        pack_block's output."""
+        m = self.model
+        if noise is None:
+            noise = m._noise(self.gen, (K, self.B, m.specs.ldim))
+        latents, flags, audio, lm, mimi = m._decode_block(self.state(), self.mimi, self.prev,
+                                                          self.is_bos, noise)
+        self.slab.offset.copy_(lm.offset)
+        self.slab.wp.copy_(lm.write_ptr)
+        self.prev.copy_(latents[-1])
+        self.is_bos.zero_()
+        for dst, src in zip(tree_leaves(self.mimi), tree_leaves(mimi)):
+            if dst is not src:
+                dst.copy_(src)
+        return pack_block(flags, audio)
+
+    def run(self, K: int) -> tuple[np.ndarray, np.ndarray]:
+        """One block of K frames (captured first if its key is new when
+        graphed): the EOS flags [K, B] and audio [K, B, S] on the host."""
+        m = self.model
+        C = self.slab.k.shape[2]
+        if not 0 <= self.write_pos <= C - K:
+            raise ValueError(f"a block of {K} frames at write_pos {self.write_pos} overflows "
+                             f"capacity {C}")
+        if not self.graphed:
+            noise = m._block_noise(self.gen, self.noise_source, K, self.B_noise)[:, self.rows]
+            out = self.block(K, noise).cpu().numpy()
+        else:
+            if self.flash and self.write_pos + K - 1 > MAX_ATT:
+                raise NotImplementedError(f"flash_decode attends at most {MAX_ATT} slots "
+                                          f"(write_pos {self.write_pos}, a block of {K})")
+            g = m.gen
+            injected = self.noise_source is not None
+            key = (K, C, g.lsd_decode_steps, g.eos_threshold,
+                   "injected" if injected else ("device", g.temp, g.noise_clamp))
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = _BlockGraph(self, K, injected)
+                with self.owner.lock:
+                    self.graphs[key] = graph
+            if injected:
+                graph.noise.copy_(torch.from_numpy(m._host_noise(self.noise_source, K, self.B)))
+            out = graph.replay()
+            self.owner.replays += 1
+        self.write_pos += K
+        m.decode_steps += K
+        return unpack_block(out)
+
+    def final_state(self) -> StackState:
+        """The post-chunk state. Graphed, its caches in tensors of their own
+        (the lane's buffers serve later chunks); op by op, the slab's."""
+        s = self.state()
+        if not self.graphed:
+            return s
+        return StackState(s.k.clone(), s.v.clone(), s.pos, s.offset, s.write_pos)
+
+    def drop(self, C: int) -> int:
+        """Drop the slab of C slots and the graphs captured on it; its bytes."""
+        slab = self.slabs.pop(C)
+        for key in [key for key in self.graphs if key[1] == C]:
+            del self.graphs[key]
+        if slab is self.slab:
+            self.slab = None
+        return slab.nbytes
+
+    def close(self) -> None:
+        """The chunk is over: the lane is free, and the idle slabs over the
+        budget go."""
+        with self.owner.lock:
+            self.busy = False
+            if self.graphed:
+                self.owner.make_room(0)
+
+
+class StepGraphs:
+    """A model's lanes, by batch size, and what they may keep (see the
+    module docstring)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.lanes: dict[int, list[Lane]] = {}
+        self.stream = None  # the side stream every capture and warm-up runs on
+        self.weights: tuple = ()  # the (params, mimi_params) the lanes were made for
+        self.budget: int | None = None  # bytes of slabs kept; None: KEEP_FRACTION of the card
+        self.replays = 0  # every replay of this model's graphs
+        self.lock = threading.RLock()
+        self._tick = 0
+
+    def acquire(self, B: int, seed: int | None, noise_source, rows: slice = slice(None),
+                B_noise: int | None = None) -> Lane:
+        """A lane for a chunk of B rows, its noise set (Lane.start). Graphed
+        (model._graphed()): a free lane of the model's (a new one when every
+        lane of B is held; every lane is dropped first when the model's
+        weights are not the ones the graphs were captured on). Else a lane
+        of its own, kept by nobody."""
+        m = self.model
+        if not m._graphed():
+            lane = Lane(self, B, False, rows, B_noise)
+            lane.busy = True
+        else:
+            with self.lock:
+                weights = (m.params, m.mimi_params)
+                if len(self.weights) != 2 or any(a is not b for a, b in zip(weights,
+                                                                            self.weights)):
+                    self.release()
+                    self.weights = weights
+                if self.stream is None and m.device.type == "cuda":
+                    self.stream = torch.cuda.Stream(m.device)
+                if self.budget is None and m.device.type == "cuda":
+                    self.budget = int(KEEP_FRACTION
+                                      * torch.cuda.get_device_properties(m.device).total_memory)
+                lanes = self.lanes.setdefault(B, [])
+                lane = next((ln for ln in lanes if not ln.busy), None)
+                if lane is None:
+                    lane = Lane(self, B, True)
+                    lanes.append(lane)
+                lane.busy = True
+        lane.start(seed, noise_source)
+        return lane
+
+    def tick(self) -> int:
+        self._tick += 1
+        return self._tick
+
+    def held(self) -> int:
+        """Bytes the lanes hold: caches, graph pools and their own buffers."""
+        return sum(lane.nbytes for lanes in self.lanes.values() for lane in lanes)
+
+    def make_room(self, nbytes: int, budget: int | None = None) -> None:
+        """Drop idle slabs, least recently used first, until what is held
+        and `nbytes` more fit `budget` (default: self.budget); then the idle
+        lanes left with no slab. A slab is idle unless it is the current
+        slab of a lane a chunk holds."""
+        budget = self.budget if budget is None else budget
+        if budget is None:
+            return
+        with self.lock:
+            held = self.held()
+            idle = sorted(((s.used, lane, C) for lanes in self.lanes.values() for lane in lanes
+                           for C, s in lane.slabs.items() if not (lane.busy and s is lane.slab)),
+                          key=lambda t: t[0])
+            for _, lane, C in idle:
+                if held + nbytes <= budget:
+                    break
+                held -= lane.drop(C)
+            for B in list(self.lanes):
+                self.lanes[B] = [ln for ln in self.lanes[B] if ln.busy or ln.slabs]
+                if not self.lanes[B]:
+                    del self.lanes[B]
+
+    def release(self) -> None:
+        """Drop every lane: the graphs, their pools and the buffers."""
+        with self.lock:
+            self.lanes.clear()
+
+    def stats(self) -> list[dict]:
+        """Per kept graph: B, K, C, the noise kind, its warm-up's and its
+        capture's seconds, replays and the kernel launches of one replay."""
+        with self.lock:
+            return [dict(B=lane.B, K=key[0], C=key[1], noise=key[4] if key[4] == "injected"
+                         else "device", warmup_s=g.warmup_s, capture_s=g.capture_s,
+                         replays=g.replays, launches=dict(g.launches))
+                    for lanes in self.lanes.values() for lane in lanes
+                    for key, g in lane.graphs.items()]

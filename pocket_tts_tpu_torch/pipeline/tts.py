@@ -17,10 +17,14 @@ first for first-chunk latency, then 8, then 32). Each frame runs the FlowLM
 decode step (the decode-stack kernel on the card) and the flow head; each
 block's latents then go through the Mimi decoder in one call (the codec
 kernel on the card), and the block's EOS flags and audio come to the host
-with one copy. Emission follows the JAX package exactly (`_ChunkEmit`): the
-frames after the first EOS, the frames-after-EOS allowance and the break
-step. The JAX package overlaps those copies with later dispatches on a
-background thread (`_FetchPipe`); here each block is copied when it is done.
+with one copy. On the card an unsharded model runs each block as one CUDA
+graph replay (pipeline/step_graphs.py: the counterpart of the JAX package's
+jitted `_fused_step_fn` / `_multi_step_fn`); the CPU and a mesh run the same
+block (`_decode_block`) op by op, in the same buffers (a `Lane`).
+Emission follows the JAX package exactly (`_ChunkEmit`): the frames after
+the first EOS, the frames-after-EOS allowance and the break step. The JAX
+package overlaps those copies with later dispatches on a background thread
+(`_FetchPipe`); here each block is copied when it is done.
 
 A deliberate difference follows: with EOS on, the JAX package keeps
 dispatching speculative blocks until its fetch thread resolves the EOS
@@ -134,12 +138,8 @@ from pocket_tts_tpu_torch.parallel.mesh import (
     shard_state,
     shard_transformer_params,
 )
-from pocket_tts_tpu_torch.pipeline.states import (
-    batch_states,
-    expand_state,
-    export_model_state,
-    import_model_state,
-)
+from pocket_tts_tpu_torch.pipeline.states import export_model_state, import_model_state
+from pocket_tts_tpu_torch.pipeline.step_graphs import StepGraphs
 from pocket_tts_tpu_torch.quant import (
     RECOMMENDED_CONFIG,
     quantize_flow_lm_int8,
@@ -302,6 +302,7 @@ class TTSModel:
         self.model_recommended_frames_after_eos = config.model_recommended_frames_after_eos
         self.decode_steps = 0  # FlowLM decode steps run by this model (all requests)
         self.mesh = None  # set by shard_for_mesh for sharded serving
+        self.step_graphs = StepGraphs(self)  # the chunks' block loops
 
     @property
     def _dtype(self) -> torch.dtype:
@@ -585,6 +586,7 @@ class TTSModel:
         self.specs = dataclasses.replace(self.specs, transformer=cfg._replace(tp=tp))
         self.mesh = mesh
         self._voice_state_cache.clear()
+        self.step_graphs.release()
 
     # -------------------------------------------------------------- generation
 
@@ -598,41 +600,28 @@ class TTSModel:
                                "must be a local file.")
         return self.tokenizer.encode(text)
 
-    def _ensure_capacity(self, lm_state: StackState, slots_needed: int) -> StackState:
-        """Progressive capacity growth: pad the cache up to the smallest bucket
-        covering `slots_needed`; never shrinks. Under a mesh the cache is
-        this rank's own (its rows and heads) and grows in place of a
-        re-shard."""
-        cap = _bucket(slots_needed, CAPACITY_BUCKETS)
-        return expand_state(lm_state, cap) if cap > lm_state.k.shape[2] else lm_state
-
-    def _working_state(self, state: StackState, capacity: int,
-                       fresh: bool = False) -> StackState:
-        """`state` grown to `capacity` slots, in the model's dtype, in tensors
-        of its own: the in-place KV append must not reach the caller's state.
-        `fresh`: `state` is already a copy (batch_states' output)."""
-        st = expand_state(state, capacity)
-        if (st is state and not fresh) or st.k.dtype != self._dtype:
-            st = StackState(st.k.to(self._dtype, copy=True), st.v.to(self._dtype, copy=True),
-                            st.pos.clone(), st.offset.clone(), st.write_pos)
-        return st
+    def _host_noise(self, noise_source: Callable, K: int, B: int) -> np.ndarray:
+        """[K, B, ldim] f32 flow noise asked of `noise_source` as (B, ldim)
+        when K=1 and (K, B, ldim) otherwise."""
+        ldim = self.specs.ldim
+        noise = noise_source((B, ldim) if K == 1 else (K, B, ldim))
+        return np.ascontiguousarray(np.asarray(noise, dtype=np.float32).reshape(K, B, ldim))
 
     def _block_noise(self, gen: torch.Generator | None, noise_source: Callable | None,
                      K: int, B: int) -> torch.Tensor:
-        """[K, B, ldim] flow noise for one block: drawn on the device, or asked
-        of `noise_source` as (B, ldim) when K=1 and (K, B, ldim) otherwise."""
-        ldim = self.specs.ldim
+        """[K, B, ldim] flow noise for one block on the device: drawn there,
+        or asked of `noise_source` (`_host_noise`)."""
         if noise_source is None:
-            return self._noise(gen, (K, B, ldim))
-        noise = noise_source((B, ldim) if K == 1 else (K, B, ldim))
-        return torch.as_tensor(noise, dtype=torch.float32).reshape(K, B, ldim).to(self.device)
+            return self._noise(gen, (K, B, self.specs.ldim))
+        return torch.from_numpy(self._host_noise(noise_source, K, B)).to(self.device)
 
     def _decode_block(self, lm_state: StackState, mimi_state: dict, prev_latent: torch.Tensor,
                       is_bos: torch.Tensor, noise: torch.Tensor):
         """K frames for every row: K FlowLM decode steps (is_bos applies to the
         first), then the block's latents through the Mimi decoder in one call.
-        Returns (last latent [B, ldim], EOS flags [K, B], audio [K, B, 1, 1920],
-        lm_state, mimi_state)."""
+        The body a step graph captures (pipeline/step_graphs.py): no host read
+        and no host decision on device values. Returns (latents [K, B, ldim],
+        EOS flags [K, B], audio [K, B, 1, 1920], lm_state, mimi_state)."""
         K, B = noise.shape[0], noise.shape[1]
         latents, flags = [], []
         for i in range(K):
@@ -643,7 +632,6 @@ class TTSModel:
             flags.append(eos)
             prev_latent = latent
             is_bos = torch.zeros_like(is_bos)
-        self.decode_steps += K
         flags = any_over_model(torch.stack(flags), self._tp)  # one stop decision per group
         stacked = torch.stack(latents)  # [K, B, ldim]
         denorm = stacked * self.params["emb_std"] + self.params["emb_mean"]
@@ -652,20 +640,29 @@ class TTSModel:
         audio, mimi_state = decoder_step(self.mimi_specs, self.mimi_params, quantized,
                                          mimi_state)  # [B, 1, K*1920]
         audio = audio.reshape(B, 1, K, -1).permute(2, 0, 1, 3)  # [K, B, 1, 1920]
-        return prev_latent, flags, audio, lm_state, mimi_state
+        return stacked, flags, audio, lm_state, mimi_state
 
     def _noise(self, gen: torch.Generator, shape) -> torch.Tensor:
-        """Flow noise on the device: N(0, temp), truncated to ±noise_clamp by
-        resampling (the JAX package's device noise has the same law)."""
+        """Flow noise on the device: N(0, temp), truncated to ±noise_clamp with
+        a fixed amount of work (no host read, so a step graph can hold it):
+        the inverse CDF of a uniform on [Φ(-c), Φ(c)], c = noise_clamp / std,
+        as jax.random.truncated_normal draws the JAX package's device noise."""
         std = self.gen.temp ** 0.5
-        z = torch.randn(shape, generator=gen, device=self.device)
-        if self.gen.noise_clamp is not None:
-            c = self.gen.noise_clamp / std
-            bad = z.abs() > c
-            while bool(bad.any()):
-                z = torch.where(bad, torch.randn(shape, generator=gen, device=self.device), z)
-                bad = z.abs() > c
-        return z * std
+        if self.gen.noise_clamp is None:
+            return torch.randn(shape, generator=gen, device=self.device) * std
+        c = self.gen.noise_clamp / std
+        lo, hi = math.erf(-c / math.sqrt(2)), math.erf(c / math.sqrt(2))
+        u = torch.rand(shape, generator=gen, device=self.device) * (hi - lo) + lo
+        z = torch.erfinv(u) * math.sqrt(2)
+        # inside the open interval, as JAX clips it (rounding, or u at lo)
+        edge = float(np.nextafter(np.float32(c), np.float32(0)))
+        z = z.clamp(-edge, edge) * std
+        return z.clamp(-self.gen.noise_clamp, self.gen.noise_clamp)
+
+    def _graphed(self) -> bool:
+        """Whether a chunk's blocks run as CUDA graph replays: on the card,
+        unsharded (a mesh's step holds collectives)."""
+        return self.device.type == "cuda" and self.mesh is None
 
     @typechecked(
         model_state=StackState, text_to_generate=str, max_tokens=int,
@@ -734,41 +731,33 @@ class TTSModel:
         slots_used = model_state.write_pos
         pad_to = _bucket(token_count, PROMPT_BUCKETS)
 
-        lm_state = self._working_state(model_state,
-                                       _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
-        mimi_state = init_decoder_state(self.mimi_specs, 1, self._dtype, self.device)
-        lm_state = self._prompt_text_tokens(lm_state, [tokens])
-
-        prev_latent = torch.zeros((1, self.specs.ldim), dtype=torch.float32, device=self.device)
-        is_bos = torch.ones((1,), dtype=torch.bool, device=self.device)
-        gen = None
+        seed = None
         if noise_source is None:
-            gen = torch.Generator(device=self.device)
             tp = self._tp
-            gen.manual_seed(self._seed(spec.get("seed"),
-                                       [tp.group] if tp is not None and tp.size > 1 else []))
-
-        run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
-        out: list[np.ndarray] = []
-        start_slots = slots_used + pad_to
-        frames_started = 0
-        while frames_started < max_gen_len and not run.stop:
-            K = _block_size(frames_started, warm=spec.get("warm_start", False))
-            lm_state = self._ensure_capacity(lm_state, start_slots + frames_started + K)
-            noise = self._block_noise(gen, noise_source, K, 1)
-            prev_latent, flags, audio, lm_state, mimi_state = self._decode_block(
-                lm_state, mimi_state, prev_latent, is_bos, noise)
-            is_bos = torch.zeros_like(is_bos)
-            host_flags = flags.cpu().numpy()
-            host_audio = audio.float().cpu().numpy()
-            run.emit(frames_started, host_flags, host_audio, out)
-            frames_started += K
-            while out:
-                yield out.pop(0)
-        run.frames_started = frames_started
-        run.finish()
-        if write_back:
-            self._write_back(model_state, lm_state, run, token_count)
+            seed = self._seed(spec.get("seed"),
+                              [tp.group] if tp is not None and tp.size > 1 else [])
+        blocks = self.step_graphs.acquire(1, seed, noise_source)
+        try:
+            lm_state = blocks.load(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
+            blocks.begin(self._prompt_text_tokens(lm_state, [tokens]))
+            run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
+            out: list[np.ndarray] = []
+            start_slots = slots_used + pad_to
+            frames_started = 0
+            while frames_started < max_gen_len and not run.stop:
+                K = _block_size(frames_started, warm=spec.get("warm_start", False))
+                blocks.grow(_bucket(start_slots + frames_started + K, CAPACITY_BUCKETS))
+                host_flags, host_audio = blocks.run(K)  # [K, 1], [K, 1, 1920]
+                run.emit(frames_started, host_flags, host_audio[:, :, None], out)
+                frames_started += K
+                while out:
+                    yield out.pop(0)
+            run.frames_started = frames_started
+            run.finish()
+            if write_back:
+                self._write_back(model_state, blocks.final_state(), run, token_count)
+        finally:
+            blocks.close()
         dur_ms = run.emitted * self.samples_per_frame * 1000 / self.sample_rate
         wall_ms = (time.monotonic() - t_start) * 1000
         logger.info("Generated %d ms of audio in %d ms (%.2fx real-time)",
@@ -789,6 +778,7 @@ class TTSModel:
         model_state.pos = torch.where(lm_state.pos < final_offset[:, None], lm_state.pos, -1)
         model_state.offset = final_offset
         model_state.write_pos = lm_state.write_pos
+        model_state.write_ptr = None
 
     def _prompt_text_tokens(self, lm_state: StackState, token_lists: list[list[int]],
                             pad_to: int | None = None) -> StackState:
@@ -859,49 +849,44 @@ class TTSModel:
                       else max(s.write_pos for s in model_states))
         rows = slice(0, B) if self.mesh is None else data_rows(B, self.mesh)
         token_lists = token_lists[rows]
-        # start small; _ensure_capacity grows the cache per block
+        # start small; the block loop grows the cache per block
         capacity = _bucket(slots_used + pad_to, CAPACITY_BUCKETS)
-        if batched:  # this rank's rows, as views: _working_state copies them
-            lm_state = self._working_state(
-                StackState(model_states.k[:, rows], model_states.v[:, rows],
-                           model_states.pos[rows], model_states.offset[rows],
-                           model_states.write_pos), capacity)
-        else:
-            lm_state = self._working_state(batch_states(model_states[rows], capacity), capacity,
-                                           fresh=True)
+        if seed is None and noise_source is None:
+            seed = self._seed(seed, [] if self.mesh is None else mesh_groups(self.mesh))
+        loop = self.step_graphs.acquire(len(token_lists), seed, noise_source, rows, B)
         Bl = len(token_lists)
-        mimi_state = init_decoder_state(self.mimi_specs, Bl, self._dtype, self.device)
-        lm_state = self._prompt_text_tokens(lm_state, token_lists, pad_to)
-
-        gen = None
-        if noise_source is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self._seed(seed, [] if self.mesh is None else mesh_groups(self.mesh)))
-        prev_latent = torch.zeros((Bl, self.specs.ldim), dtype=torch.float32, device=self.device)
         eos_step = np.full((Bl,), -1, np.int64)
         end_step = np.full((Bl,), max_gen_len, np.int64)
         blocks: list[np.ndarray] = []  # [K, B, 1920] each
-        start_slots = slots_used + pad_to
-        step = 0
-        done = False
-        while step < max_gen_len and not done:
-            K = _block_size(step)
-            lm_state = self._ensure_capacity(lm_state, start_slots + step + K)
-            is_bos = torch.full((Bl,), step == 0, dtype=torch.bool, device=self.device)
-            noise = self._block_noise(gen, noise_source, K, B)[:, rows]
-            prev_latent, flags, audio, lm_state, mimi_state = self._decode_block(
-                lm_state, mimi_state, prev_latent, is_bos, noise)
-            host_flags = flags.cpu().numpy()
-            blocks.append(audio[:, :, 0].float().cpu().numpy())
-            for i in range(K):
-                s = step + i
-                if s >= max_gen_len:
-                    break
-                self._update_row_cuts(host_flags[i], s, eos_step, end_step, frames_after_eos)
-                if (end_step <= s).all():
-                    done = True
-                    break
-            step += K
+        try:
+            if batched:  # this rank's rows, as views: the working copy copies them
+                lm_state = loop.load(StackState(model_states.k[:, rows], model_states.v[:, rows],
+                                                model_states.pos[rows],
+                                                model_states.offset[rows],
+                                                model_states.write_pos), capacity)
+            else:
+                lm_state = loop.load(list(model_states[rows]), capacity)
+            loop.begin(self._prompt_text_tokens(lm_state, token_lists, pad_to))
+            start_slots = slots_used + pad_to
+            step = 0
+            done = False
+            while step < max_gen_len and not done:
+                K = _block_size(step)
+                loop.grow(_bucket(start_slots + step + K, CAPACITY_BUCKETS))
+                host_flags, host_audio = loop.run(K)
+                blocks.append(host_audio)
+                for i in range(K):
+                    s = step + i
+                    if s >= max_gen_len:
+                        break
+                    self._update_row_cuts(host_flags[i], s, eos_step, end_step,
+                                          frames_after_eos)
+                    if (end_step <= s).all():
+                        done = True
+                        break
+                step += K
+        finally:
+            loop.close()
 
         if (eos_step < 0).any():
             no_eos = (rows.start + np.nonzero(eos_step < 0)[0]).tolist()
@@ -949,3 +934,4 @@ class TTSModel:
         eos_step[newly] = s
         has = eos_step >= 0
         end_step[has] = np.minimum(end_step[has], eos_step[has] + frames_after_eos)
+

@@ -524,3 +524,187 @@ def test_kernel_launch_counters_count_kernel_calls(card):
     fd.flash_decode(*args)
     fd.flash_decode(*(a.cpu() for a in args))
     assert fd.KERNEL.launches == before + 1
+
+
+# ---------------------------------------------------------- step graphs
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("C", [256, 1024])
+def test_decode_stack_reads_the_write_pointer_from_the_device(card, C, quant):
+    """One graph captured with the write pointer in device memory, replayed
+    at several positions (the pointer, the offset and the pos map changed in
+    place between replays): each replay gives the eager launch's bits at that
+    position, and both are held to the plain version. Positions from the
+    first split (<= 128 slots) to the most splits the capacity takes."""
+    dtype = torch.bfloat16
+    cfg, params, k, v, pos, off, x, _ = stack_case(card, dtype, "flagship", C, 100, quant)
+    wp = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    ks, vs = k.clone(), v.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h_g = ds._decode_stack_cuda(cfg, params, x, ks, vs, pos, off, wp)
+    scale = stack_depth_scale(dtype, cfg.num_layers)
+    for n in (40, 127, 200, C - 60, C - 8):
+        pos.fill_(-1)
+        pos[0, :n + 7] = torch.arange(n + 7, dtype=torch.int32, device="cuda")
+        pos[0, 5] = -1
+        off.fill_(n)
+        wp.fill_(n + 7)
+        ks.copy_(k)
+        vs.copy_(v)
+        graph.replay()
+        ke, ve = k.clone(), v.clone()
+        h_e = ds._decode_stack_cuda(cfg, params, x, ke, ve, pos, off, wp)
+        torch.cuda.synchronize()
+        assert torch.equal(h_g, h_e) and torch.equal(ks, ke) and torch.equal(vs, ve), n
+        kp, vp = k.clone(), v.clone()
+        h_p = ds.decode_stack_plain(cfg, params, x, kp, vp, pos, off, n + 7)
+        assert_close_rel(h_e, h_p, dtype, scale)
+        assert_close_rel(ke[:, :, n + 7], kp[:, :, n + 7], dtype, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", [(32, 256), (4, 4096)], ids=["b32-c256", "b4-c4096"])
+def test_flash_decode_reads_the_length_from_the_device(card, B, C):
+    """One graph captured with the attended length in device memory (planned
+    for the capacity), replayed at several lengths: each replay gives the
+    eager launch's bits at that length, held to the plain version (which
+    slices at a host length); slots at and past the length hold NaN and
+    never leak."""
+    dtype = torch.bfloat16
+    args = list(flash_case(card, B, C, 16, 64, dtype, C, serving=True))
+    att = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = fd._flash_decode_cuda(*args, att_len=att)
+    clean = [a.clone() for a in args[1:3]]
+    for n in (0, 50, C // 2 + 3, C - 1, C):
+        att.fill_(n)
+        for i, t in zip((1, 2), clean):
+            args[i].copy_(t)
+            args[i][:, n:] = float("nan")
+        graph.replay()
+        out_e = fd._flash_decode_cuda(*args, att_len=att)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, out_e), n
+        assert torch.isfinite(out_e.float()).all()
+        plain = [a.clone() for a in args]
+        plain[1], plain[2] = clean
+        assert_close_rel(out_e, fd.flash_decode_plain(*plain, att_len=n), dtype)
+
+
+def serving_model(card, quant: bool = False):
+    """The english.yaml model with seeded random bf16 weights (int8 FlowLM
+    rows with `quant`), EOS off, on the card; no tokenizer."""
+    from pocket_tts_tpu_torch.core.tree import tree_map
+    from pocket_tts_tpu_torch.models.flow_lm import build_flow_lm_specs, init_flow_lm_params
+    from pocket_tts_tpu_torch.models.mimi import init_mimi_params
+    from pocket_tts_tpu_torch.pipeline.tts import GenerationParams, TTSModel
+
+    cfg = load_config(CONFIGS_DIR / "english.yaml")
+    specs, mspecs = build_flow_lm_specs(cfg), build_mimi_specs(cfg.mimi)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def bf16(t):
+        return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+    params = tree_map(bf16, init_flow_lm_params(specs, g, torch.float32, "cuda"))
+    mimi = tree_map(bf16, init_mimi_params(mspecs, g, torch.float32, "cuda"))
+    if quant:
+        params = quantize_flow_lm_int8(params)
+    return TTSModel(specs, mspecs, params, mimi, None, cfg, GenerationParams(eos_threshold=1e9),
+                    torch.device("cuda"))
+
+
+def voice(model, card, B: int = 1):
+    cond = torch.randn((B, 40, model.specs.transformer.d_model), generator=card, device="cuda")
+    return model.state_for_conditioning(cond * 0.5)
+
+
+def noise_stream(ldim: int, B: int, seed: int):
+    """Recorded flow noise, served K frames at a time."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    state = {"n": 0}
+
+    def source(shape):
+        state["n"] += 1
+        return (rng.standard_normal(shape) * 0.7 ** 0.5).astype(np.float32)
+
+    return source
+
+
+@pytest.mark.cuda
+def test_graphed_b1_blocks_equal_eager_blocks(card):
+    """b1 bf16: one chunk through blocks of 1, 1, 8, 8, 8, 8 and 32 frames
+    (max_gen_len 66) as graph replays, against the same chunk op by op on
+    the same injected noise: the same audio bits; then a second chunk
+    replays the graphs the first captured; the voice state untouched."""
+    import numpy as np
+
+    model = serving_model(card)
+    state = voice(model, card)
+    before = state.clone()
+    tokens = [3, 17, 9, 41, 5, 23, 8]
+    runs = {}
+    for graphed in (True, False):
+        model._graphed = lambda graphed=graphed: graphed
+        runs[graphed] = [np.concatenate(list(model.generate_audio_stream_from_tokens(
+            state, tokens, frames_after_eos=2, max_gen_len=66,
+            noise_source=noise_stream(model.specs.ldim, 1, seed)))) for seed in (1, 2)]
+    for a, b in zip(runs[True], runs[False]):
+        assert a.shape == (66 * 1920,) and np.array_equal(a, b)
+    keys = {(s["K"], s["C"]) for s in model.step_graphs.stats()}
+    assert {K for K, _ in keys} == {1, 8, 32}
+    assert all(s["replays"] >= 2 for s in model.step_graphs.stats())
+    assert torch.equal(state.k, before.k) and state.write_pos == before.write_pos
+
+
+@pytest.mark.cuda
+def test_graphed_b32_int8_blocks_equal_eager_blocks(card):
+    """B=32 with int8 FlowLM rows (flash decode, the gemv kernel's int8
+    products, the codec at B=32), through blocks of 1, 1, 8, 8, 8, 8 and 32
+    (a 46-frame limit): graph replays against the same batch op by op on
+    the same injected noise, the same audio bits."""
+    import numpy as np
+
+    model = serving_model(card, quant=True)
+    state = voice(model, card)
+    token_lists = [[3 + b % 5, 17, 9 + b % 3, 41, 5][: 3 + b % 3] for b in range(32)]
+    out = {}
+    for graphed in (True, False):
+        model._graphed = lambda graphed=graphed: graphed
+        out[graphed] = model.generate_audio_batch([state] * 32, token_lists,
+                                                  noise_source=noise_stream(
+                                                      model.specs.ldim, 32, 4))
+    for a, b in zip(out[True], out[False]):
+        assert a.size > 0 and np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_replays_advance_the_generator_across_chunks(card):
+    """Device noise: chunk 1 (seed 11) captures the graphs, chunk 2 (seed 12)
+    replays them with the lane's generator reseeded; both equal the eager
+    chunks drawn from fresh generators of the same seeds (each replay
+    advanced the generator as the eager draws do), and two blocks of one
+    chunk differ."""
+    import numpy as np
+
+    model = serving_model(card)
+    state = voice(model, card)
+    tokens = [3, 17, 9, 41, 5]
+    runs = {}
+    for graphed in (True, False):
+        model._graphed = lambda graphed=graphed: graphed
+        runs[graphed] = [np.concatenate(list(model.generate_audio_stream_from_tokens(
+            state, tokens, frames_after_eos=2, max_gen_len=34, seed=seed)))
+            for seed in (11, 12)]
+    for a, b in zip(runs[True], runs[False]):
+        assert np.array_equal(a, b)
+    first = runs[True][0].reshape(-1, 1920)
+    assert not np.array_equal(first[2:10], first[10:18])  # two 8-frame blocks
+    assert not np.array_equal(runs[True][0], runs[True][1])

@@ -304,6 +304,24 @@ def test_stop_ends_both_data_ranks(dp):
     dp.stop()
 
 
+def test_stop_passes_over_a_frozen_follower(env):
+    """SIGINT to rank 0 while its follower is frozen (SIGSTOP) and idle, the
+    mesh not yet degraded: `stop` sends nothing to a follower whose
+    heartbeat stands still (a pending gloo send would keep rank 0 from
+    exiting), and rank 0 exits with rc 0 within HEALTH_S + HEALTH_MARGIN_S."""
+    job = Job(env, "frozen", mesh=(2, 1))
+    try:
+        assert call(job.url, "/health")[0] == 200
+        os.kill(job.procs[1].pid, signal.SIGSTOP)
+        t0 = time.monotonic()
+        job.procs[0].send_signal(signal.SIGINT)
+        out = wait_ranks([job.procs[0]], HEALTH_S + HEALTH_MARGIN_S)[0]
+        assert time.monotonic() - t0 <= HEALTH_S + HEALTH_MARGIN_S
+        assert "stop not sent" in out, out
+    finally:
+        job.kill()
+
+
 def test_heartbeat_timeout_on_a_lost_rank(tmp_path):
     """assert_mesh_healthy(mesh, timeout) over a gloo group of two whose
     rank 1 first stays silent, then exits: False both times, each within
