@@ -65,7 +65,17 @@ Phases, each of which makes the script exit non-zero when it fails:
      6's 24l b1 bf16) graphed and op by op on the same seed: wall,
      audio-s/s, replays, device time and busy share (profiled), every
      graph's warm-up and capture time, and the audio held bit-equal or
-     within the bf16 bar (`graph summary` lines at the end);
+     within the bf16 bar (`graph summary` lines at the end). The pipeline
+     phase (`pipelined_vs_unpipelined`) runs the same five requests with
+     the fetch pipeline's PIPELINE_DEPTH patched to 1 and at its default,
+     in turns on one seed (wall, audio-s/s, replays, the b1 first chunk,
+     then device time and busy share profiled; the audio bit-equal), and a
+     four-chunk b1 bf16 stream with EOS forced on, copy_state True and
+     False (`pipelined_streams`: the continued state's offset, pos and
+     write pointer equal at both depths and trimmed as the reference loop
+     runs); `pipe summary` lines at the end. `graph_nodes` holds the
+     kernels of one replay of a b1 and a B=32 block graph (profiled, by
+     CUDA function name) to the launches their captures recorded;
   5b. voice cloning at english.yaml width: the port's own random f32 params
      (a seeded generator) written as a safetensors checkpoint, load_model
      from it in bf16 without allow_random_init, two wav voices (10 s mono
@@ -1291,6 +1301,223 @@ def graph_memory(model, B: int = 32) -> dict:
     return res
 
 
+PIPE_RESULTS: dict = {}  # label -> pipelined_vs_unpipelined's numbers
+
+
+def stream_request(model, voice, text: str, seed: int, **kw):
+    """One generate_audio_stream request consumed whole: (audio, ms from the
+    call to its first chunk)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    chunks, first_ms = [], None
+    for chunk in model.generate_audio_stream(voice, text, seed=seed, **kw):
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3
+        chunks.append(chunk)
+    return np.concatenate(chunks) if chunks else np.zeros((0,), np.float32), first_ms
+
+
+def pipelined_vs_unpipelined(model, label: str, request, keep=None) -> dict:
+    """One request with the fetch pipeline's PIPELINE_DEPTH patched to 1
+    (each block fetched before the next is dispatched) and at its default
+    (the next block decodes while the host waits on and emits the last),
+    as graph_vs_eager patches `_graphed`, on one seed. `request()` returns
+    (audio, first-chunk ms or None). A first run captures every key; then
+    the request is timed at each depth in turns (unpipelined, pipelined,
+    pipelined, unpipelined; a garbage collection before each: wall, replays,
+    first chunk; audio-s/s over the mean wall) and run once more at each
+    under the profiler (device time and busy share of the profiled window,
+    a lower bound). The audio must be bit-equal in every run. `keep(mode)`,
+    if given, is called after each timed run (the caller keeps what it
+    compares)."""
+    import numpy as np
+    import torch
+
+    from pocket_tts_tpu_torch.pipeline import tts as ptts
+
+    depths = {"unpipelined": 1, "pipelined": ptts.PIPELINE_DEPTH}
+    default = ptts.PIPELINE_DEPTH
+    ref, _ = request()
+    if ref.size == 0 or not np.isfinite(ref).all():
+        raise AssertionError(f"pipe {label}: bad audio ({ref.size} samples)")
+    res = {m: dict(walls=[], first_chunk_ms=[], replays=[]) for m in depths}
+    try:
+        for mode in ("unpipelined", "pipelined", "pipelined", "unpipelined"):
+            ptts.PIPELINE_DEPTH = depths[mode]
+            gc.collect()
+            n0 = model.step_graphs.replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio, first_ms = request()
+            torch.cuda.synchronize()
+            r = res[mode]
+            r["walls"].append(time.perf_counter() - t0)
+            r["replays"].append(model.step_graphs.replays - n0)
+            r["first_chunk_ms"].append(first_ms)
+            if not (audio.shape == ref.shape and np.array_equal(audio, ref)):
+                raise AssertionError(f"pipe {label}: the {mode} audio differs from the first "
+                                     f"run's ({audio.shape} vs {ref.shape} samples)")
+            if keep is not None:
+                keep(mode)
+        for mode, r in res.items():
+            ptts.PIPELINE_DEPTH = depths[mode]
+            gc.collect()
+            _, r["device_ms"], r["profiled_wall_ms"] = device_ms(request, wall=True)
+    finally:
+        ptts.PIPELINE_DEPTH = default
+    secs = ref.size / model.sample_rate
+    for r in res.values():
+        r.update(audio_s=secs, audio_s_per_s=secs / (sum(r["walls"]) / 2),
+                 busy=r["device_ms"] / r["profiled_wall_ms"])
+
+    def line(r):
+        first = ("" if r["first_chunk_ms"][0] is None else ", first chunk "
+                 + "/".join(f"{ms:.2f}" for ms in r["first_chunk_ms"]) + " ms")
+        return (f"{'/'.join(f'{w:.3f}' for w in r['walls'])} s a request "
+                f"({r['audio_s_per_s']:.2f} audio-s/s, replays {r['replays']}, device "
+                f"{r['device_ms']:.2f} ms, {100 * r['busy']:.1f}% busy{first})")
+
+    print(f"pipelined vs unpipelined {label}: {secs:.2f} s of audio; pipelined "
+          f"{line(res['pipelined'])} vs unpipelined {line(res['unpipelined'])}; audio "
+          f"bit-equal [{card_line()}]")
+    PIPE_RESULTS[label] = dict(bit_equal=True, **{
+        f"{m}_{k}": v for m, r in res.items() for k, v in r.items()})
+    return PIPE_RESULTS[label]
+
+
+# A four-chunk text at max_tokens=8 through the smoke's tokenizer: chunks of
+# 9, 5, 5 and 7 tokens, length limits 63, 46, 46 and 55 frames. With EOS
+# forced on at every frame the stop of a chunk with frames_after_eos=36 is
+# at its frame 37, found in its last block by length (frames 34-65 cold,
+# 32-63 warm): no block is decoded past it at either depth, so the
+# continued state's slots are the same at both, and the trim cuts it.
+# With frames_after_eos=20 each chunk's stop shows in a block that has one
+# speculative block after it at the default depth (never emitted).
+STREAM_TEXT = ("a test of the card. the card runs fast. small and fast speech. "
+               "hello card, the tts runs.")
+STREAM_MAX_TOKENS = 8
+STREAM_FRAMES_AFTER_EOS = {True: 20, False: 36}  # by copy_state
+
+
+def pipelined_streams(model, voice) -> None:
+    """The four-chunk stream (STREAM_TEXT) with copy_state=True and with
+    copy_state=False, EOS forced on (threshold -1e9: every frame flags),
+    pipelined vs unpipelined on one seed: the audio bit-equal, each chunk
+    emitting frames_after_eos frames; the continued state's offset, pos,
+    write pointer (and k, v, printed) equal at both depths, its offset the
+    voice's plus each chunk's tokens and 37 trimmed steps."""
+    import dataclasses
+
+    import torch
+
+    from pocket_tts_tpu_torch.text.splitter import split_into_best_sentences
+
+    chunks = split_into_best_sentences(model.tokenizer, STREAM_TEXT, STREAM_MAX_TOKENS,
+                                       model.pad_with_spaces_for_short_inputs,
+                                       model.remove_semicolons)
+    counts = [len(model._encode_text(c)) for c in chunks]
+    if len(chunks) != 4:
+        raise AssertionError(f"stream text: {len(chunks)} chunks {counts}")
+    saved = model.gen
+    model.gen = dataclasses.replace(saved, eos_threshold=-1e9)
+    try:
+        for copy_state in (True, False):
+            fae = STREAM_FRAMES_AFTER_EOS[copy_state]
+            label = f"4-chunk stream {'copy_state' if copy_state else 'continued'} b1 bf16"
+            holder, finals = {}, {}
+
+            def request(fae=fae, copy_state=copy_state):
+                holder["state"] = voice.clone()
+                return stream_request(model, holder["state"], STREAM_TEXT, seed=31,
+                                      max_tokens=STREAM_MAX_TOKENS, frames_after_eos=fae,
+                                      copy_state=copy_state)
+
+            r = pipelined_vs_unpipelined(model, label, request,
+                                         keep=lambda mode: finals.update({mode: holder["state"]}))
+            frames = round(r["pipelined_audio_s"] * model.sample_rate / model.samples_per_frame)
+            if frames != 4 * fae:
+                raise AssertionError(f"{label}: {frames} frames emitted, want {4 * fae}")
+            if copy_state:
+                continue
+            a, b = finals["pipelined"], finals["unpipelined"]
+            want = int(voice.offset[0]) + sum(n + fae + 1 for n in counts)
+            same = {n: torch.equal(getattr(a, n), getattr(b, n))
+                    for n in ("offset", "pos", "k", "v")}
+            print(f"{label}: continued state pipelined vs unpipelined: offset "
+                  f"{a.offset.tolist()} vs {b.offset.tolist()} (want [{want}]), write_pos "
+                  f"{a.write_pos} vs {b.write_pos}, equal {same}")
+            if not (same["offset"] and same["pos"] and a.write_pos == b.write_pos
+                    and a.offset.tolist() == [want]):
+                raise AssertionError(f"{label}: the continued states differ or are not "
+                                     "trimmed")
+    finally:
+        model.gen = saved
+
+
+def codec_ops(model) -> int:
+    """Kernels one codec_decode call launches: one per conv of the decoder."""
+    return sum(len(op.convs) if kind == "resblock" else 1
+               for kind, op in model.mimi_specs.decoder.ops if kind in ("conv", "convtr",
+                                                                         "resblock"))
+
+
+# The CUDA functions each wrapper's launch runs (the demangled names the
+# profiler reports).
+KERNEL_FUNCTIONS = {"decode_stack": ("stack_kernel",),
+                    "flash_decode": ("flash_decode_kernel",),
+                    "gemv": ("gemv_kernel", "gemv_mma_kernel"),
+                    "codec_decode": ("conv_kernel", "convtr_kernel", "conv_tc_kernel")}
+
+
+def graph_nodes(model, states, token_lists: list[list[int]], label: str, K: int = 8) -> dict:
+    """The launch counts a captured block graph records (the wrapper calls
+    made during its capture, which each replay adds to the counters)
+    against the kernels one replay of it runs: a lane of the model takes
+    `states`, a prompt pass over `token_lists` and one block of K frames
+    (the graph, captured if its key is new), then one more under the
+    profiler. Each kernel's count must equal the recorded launches (the
+    codec's times its convs per call); a mismatch fails."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from pocket_tts_tpu_torch.pipeline.tts import CAPACITY_BUCKETS, _bucket
+
+    B = len(token_lists)
+    lane = model.step_graphs.acquire(B)
+    lane.start(0, None)
+    try:
+        rows = states if isinstance(states, list) else [states]
+        lm = lane.load(states, _bucket(max(s.write_pos for s in rows) + 64, CAPACITY_BUCKETS))
+        lane.begin(model._prompt_text_tokens(lm, token_lists))
+        graph = lane._graph(K)
+        lane.fetch(lane.dispatch(K))
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lane.fetch(lane.dispatch(K))
+            torch.cuda.synchronize()
+    finally:
+        lane.close()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    per_call = {"codec_decode": codec_ops(model)}
+    got, want = {}, {}
+    for kernel, fns in KERNEL_FUNCTIONS.items():
+        pattern = re.compile(r"(?<![\w])(?:" + "|".join(fns) + r")(?=[<(\s]|$)")
+        got[kernel] = sum(1 for n in names if pattern.search(n))
+        want[kernel] = graph.launches.get(kernel, 0) * per_call.get(kernel, 1)
+    print(f"graph nodes {label} (B={B}, K={K}): kernels of one replay {got}, launches the "
+          f"capture recorded x kernels per call {want} ({len(names)} device events in all)")
+    if got != want or not any(want.values()):
+        raise AssertionError(f"graph nodes {label}: one replay ran {got}, the capture "
+                             f"recorded {want}")
+    GRAPH_RESULTS[f"nodes {label}"] = dict(replay=got, recorded=want)
+    return got
+
+
 MAIN_TEXTS = ["hello world. this is a test of the tts.",
               "the card runs fast and small speech.",
               "this is a test. hello world, this is the speech of the card."]
@@ -1351,6 +1578,10 @@ def run_main_path(tmp: Path):
     voice = make_voice(model, tmp, "voice-bf16")
     launches = run_b1(model, voice, "main path b1 bf16", MAIN_TEXTS, [1, 2, 3], stream_seed=9)
     graph_vs_eager(model, "b1 bf16", lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=5))
+    pipelined_vs_unpipelined(model, "b1 bf16",
+                             lambda: stream_request(model, voice, MAIN_TEXTS[1], seed=5))
+    pipelined_streams(model, voice)
+    graph_nodes(model, voice, [model._encode_text(MAIN_TEXTS[0])], "b1 bf16")
     # enough rows for every decode-stack and codec kernel
     profile("one generate_audio request",
             lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=4), top=16)
@@ -1490,6 +1721,8 @@ def mimi_attention_check() -> int:
 
 def run_batched_paths(tmp: Path, model, voice) -> dict:
     """B=32 bf16, B=128 bf16, then the int8 model: B=32 and b1."""
+    import numpy as np
+
     from pocket_tts_tpu_torch.pipeline.tts import TTSModel
 
     paths = {}
@@ -1503,6 +1736,10 @@ def run_batched_paths(tmp: Path, model, voice) -> dict:
         texts = [BATCH_TEXTS[i % len(BATCH_TEXTS)] for i in range(B)]
         graph_vs_eager(model, label, lambda: model.generate_audio_batch_from_texts(
             [voice] * B, texts, seed=7))
+        pipelined_vs_unpipelined(model, label, lambda: (np.concatenate(
+            model.generate_audio_batch_from_texts([voice] * B, texts, seed=7)), None))
+        if B == 32:
+            graph_nodes(model, [voice] * B, [model._encode_text(t) for t in texts], label)
         print(f"{label}: path {time.perf_counter() - t0:.1f} s with its profiles")
     t0 = time.perf_counter()
     graph_memory(model)
@@ -1516,6 +1753,8 @@ def run_batched_paths(tmp: Path, model, voice) -> dict:
     paths["b1 int8"] = run_b1(q_model, q_voice, "b1 int8", BATCH_TEXTS[:2], [400, 401])
     graph_vs_eager(q_model, "b1 int8", lambda: q_model.generate_audio(q_voice, BATCH_TEXTS[0],
                                                                        seed=402))
+    pipelined_vs_unpipelined(q_model, "b1 int8",
+                             lambda: stream_request(q_model, q_voice, BATCH_TEXTS[0], seed=402))
     print(f"int8 paths: {time.perf_counter() - t0:.1f} s with the load and the profile")
     return paths
 
@@ -1539,6 +1778,8 @@ def run_24l_paths(tmp: Path) -> dict:
         if quant is None:
             graph_vs_eager(model, label, lambda: model.generate_audio(voice, MAIN_TEXTS[1],
                                                                        seed=504))
+            pipelined_vs_unpipelined(model, label, lambda: stream_request(
+                model, voice, MAIN_TEXTS[1], seed=504))
         if quant is None:  # where a 24-layer request and its first chunk spend their time
             profile(f"one {label} request",
                     lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=502), top=12)
@@ -2687,6 +2928,9 @@ def main() -> int:
 
     for label, r in GRAPH_RESULTS.items():  # the graph phase's numbers, once more in one place
         print(f"graph summary {label}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}))
+    for label, r in PIPE_RESULTS.items():
+        print(f"pipe summary {label}: " + json.dumps(
             {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{card_line()}]")
     print(json.dumps({"kernels": kernels}))

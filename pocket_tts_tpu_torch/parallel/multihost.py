@@ -151,9 +151,9 @@ class ControlPlane:
     process must construct the plane, in the same order as its other
     groups):
     * `ops`: the op header, which rank 0 broadcasts and a follower waits for
-      while idle (IDLE_TIMEOUT_S: a follower may wait long for the next
-      request; a process that dies closes its sockets, which ends the wait
-      at once);
+      while idle (IDLE_TIMEOUT_S on a follower: it may wait long for the
+      next request; a process that dies closes its sockets, which ends the
+      wait at once; `health_timeout` on rank 0, as on `ctl`);
     * `ctl`: everything else: the op's payload, the agreements, the health
       count. Rank 0 waits `health_timeout` at most (the module's
       HEALTH_TIMEOUT_S when the plane is made), so a follower that is gone
@@ -168,12 +168,13 @@ class ControlPlane:
     follower while rank 0 waits in a collective of the data plane, which on
     NCCL does not end by itself.
     An op is (name, meta, blob): a JSON-able dict and raw bytes; one with
-    neither (stop, health) is its header alone. Rank 0's sends on `ops` are
-    waited for `health_timeout` at most too: a gloo send ends only when its
-    peer receives, so a follower that is alive but not receiving (stuck,
-    or stopped) would hold rank 0 for the group's timeout. A send left
-    pending that way also keeps rank 0's process from exiting (gloo joins
-    its worker threads), so `stop` sends only to followers that still beat
+    neither (stop, health) is its header alone. A gloo send ends only when
+    its peer receives, so a follower that is alive but not receiving
+    (stuck, or stopped) holds rank 0's send until the group's timeout ends
+    it in gloo itself: that is why every group of rank 0 has the health
+    timeout. A send that only a caller's wait gave up on would stay pending
+    and keep rank 0's process from exiting (gloo joins its worker threads
+    at exit). `stop` also sends only to followers that still beat
     (`followers_beat`)."""
 
     OPS = ("stop", "health", "tts")
@@ -182,10 +183,9 @@ class ControlPlane:
         self.health_timeout = HEALTH_TIMEOUT_S
         self.rank = dist.get_rank()
         self.size = dist.get_world_size()
-        self.ops = dist.new_group(backend="gloo",
-                                  timeout=datetime.timedelta(seconds=IDLE_TIMEOUT_S))
-        ctl_s = self.health_timeout if self.rank == 0 else IDLE_TIMEOUT_S
-        self.ctl = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=ctl_s))
+        wait_s = self.health_timeout if self.rank == 0 else IDLE_TIMEOUT_S
+        self.ops = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=wait_s))
+        self.ctl = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=wait_s))
         self._store = dist.distributed_c10d._get_default_store()
         self._closed = threading.Event()
         self._thread: threading.Thread | None = None
@@ -264,14 +264,11 @@ class ControlPlane:
             raise ControlPlaneError(f"control plane: {e}") from e
 
     def send(self, op: str, meta: dict | None = None, blob: bytes = b"") -> None:
-        """Rank 0: broadcast one op to every follower; the header's send is
-        waited for `health_timeout` at most (its payload goes on `ctl`,
-        which has that timeout of its own)."""
+        """Rank 0: broadcast one op to every follower: the header on `ops`,
+        the payload on `ctl`, each ended by gloo after `health_timeout`."""
         text = json.dumps(meta).encode() if meta else b""
         header = torch.tensor([self.OPS.index(op), len(text), len(blob)], dtype=torch.int64)
-        timeout = datetime.timedelta(seconds=self.health_timeout)
-        self._call(lambda: dist.broadcast(header, src=0, group=self.ops,
-                                          async_op=True).wait(timeout=timeout))
+        self._call(dist.broadcast, header, src=0, group=self.ops)
         payload = text + blob
         if payload:
             self._call(dist.broadcast, torch.frombuffer(bytearray(payload), dtype=torch.uint8),

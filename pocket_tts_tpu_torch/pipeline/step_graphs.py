@@ -9,36 +9,51 @@ with the flow noise drawn on the device (`TTSModel._noise`, a fixed amount
 of work) or copied in from a `noise_source`. Every chunk (`_generate_chunk`,
 `generate_audio_batch`) decodes in a `Lane`: the buffers of its B rows. On
 the card an unsharded model captures each block once per key and replays
-it: one replay, one copy of the block's audio and EOS flags (packed into one
-f32 tensor) into pinned host memory, one wait. On the CPU and under a mesh
-(whose step holds collectives) the lane calls the same body op by op.
+it. On the CPU and under a mesh (whose step holds collectives) the lane
+calls the same body op by op.
+
+Dispatch and fetch. `Lane.dispatch(K)` queues one block and returns a
+`Ticket`; `Lane.fetch(ticket)` waits for it and returns the block's EOS
+flags and audio on the host. Graphed, a dispatch is the replay, then a
+non-blocking copy of the block's audio and flags (packed into one f32
+tensor) into a pinned host slot, then an event; injected noise goes the
+other way through a pinned slot of its own, so no copy from pageable
+memory stalls the stream. The slots are the model's (`StepGraphs.slots`, a
+ring that grows while every slot is held): a slot is reused only once its
+ticket is fetched, or abandoned and done on the device. Op by op, the
+dispatch runs the block to its end and the ticket holds its host output:
+the fetch finds the work done, and the caller's schedule is the same on
+every path (pipeline/tts.py keeps PIPELINE_DEPTH blocks in flight).
 
 Buffers. A graph reads and writes fixed addresses, so a lane holds the
 FlowLM caches of a capacity bucket (a `_Slab`: k, v, pos, offset and the
 device write pointer), the Mimi decoder state, the previous latent, the
-rows' BOS flags and the flow-noise generator. A chunk copies its voice
-state into a slab (the working copy), and crossing a capacity bucket copies
-the caches into the next slab (`states.place_states` lays out both). The
-step's KV append and the decode-stack and flash-decode kernels read the
-write pointer from the device and the graph advances it there, so one graph
+rows' BOS flags, each row's first EOS step and the chunk's frame count
+(both updated inside the block, so the post-chunk trim, `Lane.trim`, needs
+no host read), and the flow-noise generator. A chunk copies its voice state
+into a slab (the working copy), and crossing a capacity bucket copies the
+caches into the next slab (`states.place_states` lays out both). The step's
+KV append and the decode-stack and flash-decode kernels read the write
+pointer from the device and the graph advances it there, so one graph
 serves every position of its capacity; the host keeps its own copy of the
-pointer, advances it by K per block and checks the capacity before each.
+pointer, advances it by K per dispatch and checks the capacity before each.
 Inside a block the new offset, pointer, latent and Mimi state are copied
-back into the lane's buffers (a few KB a row). A lane is held by one chunk
-at a time: a second live chunk of the same B (two interleaved streams)
-takes a lane of its own.
+back into the lane's buffers (a few KB a row). A lane is held by one stream
+at a time (every chunk of it, one after the other: the next chunk's load
+and prompt queue behind the last one's blocks): a second live stream of
+the same B takes a lane of its own.
 
 Memory. The K graphs of one slab share one memory pool. A graphed lane
 keeps the slabs it reached, with their graphs, for the chunks after it,
 within `StepGraphs.budget` bytes (caches, pools and the lanes' own
 buffers) over all of a model's lanes: before a slab is made, after a chunk
-leaves one for the next bucket, and when a chunk ends, the idle slabs go,
+leaves one for the next bucket, and when a stream ends, the idle slabs go,
 least recently used first, with their graphs and pools, and a lane left
 with none goes too. The slab a running chunk decodes in is never dropped,
-so a chunk holds what the op-by-op loop held (its caches, and the next
-bucket's while it grows) plus what the budget keeps. The budget is
-KEEP_FRACTION of the card's memory unless set; 0 keeps nothing between
-chunks. A lane run op by op keeps nothing either.
+and a slab or graph goes only once the device has finished every block
+dispatched in its lane (`Lane.settle`). The budget is KEEP_FRACTION of the
+card's memory unless set; 0 keeps nothing between streams. A lane run op
+by op keeps nothing either.
 
 Keys: (K, C) within a lane of B rows, and what a graph bakes in: lsd steps,
 the EOS threshold, and the noise (drawn on the device with its temperature
@@ -62,7 +77,8 @@ steps); a capture's calls launch nothing and are taken back, and are kept
 as the graph's launches per replay, which each replay adds
 (ops/build.add_launches).
 
-A capture that fails raises: there is no op-by-op carry-on on the card.
+A capture, replay or copy that fails raises: there is no op-by-op or
+unpipelined carry-on on the card.
 """
 
 from __future__ import annotations
@@ -83,6 +99,7 @@ from pocket_tts_tpu_torch.ops.flash_decode import MAX_ATT
 from pocket_tts_tpu_torch.pipeline.states import place_states
 
 KEEP_FRACTION = 0.25  # of the card's memory: the default budget of idle slabs
+NO_EOS = 2**30  # a row's first EOS step until it shows one
 warm_ups = {"steps": 0}  # decode steps run by the captures' warm-ups (every model)
 
 
@@ -96,6 +113,45 @@ def pack_block(flags: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
 def unpack_block(out: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """pack_block's host copy -> (flags [K, B] bool, audio [K, B, S] f32)."""
     return out[..., -1] > 0.5, out[..., :-1]
+
+
+class _Slot:
+    """Host memory of one dispatched block: its packed output is copied
+    into `out`, its injected noise copied from `noise` (pinned on the card,
+    each grown to the largest block it has served). Held by one ticket."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.bufs = {"out": torch.empty(0), "noise": torch.empty(0)}
+        self.ticket: Ticket | None = None
+
+    def free(self) -> bool:
+        t = self.ticket
+        return t is None or (t.abandoned and t.done())
+
+    def view(self, name: str, shape: tuple) -> torch.Tensor:
+        n = int(np.prod(shape))
+        if self.bufs[name].numel() < n:
+            self.bufs[name] = torch.empty(n, dtype=torch.float32, pin_memory=self.pinned)
+        return self.bufs[name][:n].view(shape)
+
+
+@dataclasses.dataclass(eq=False)
+class Ticket:
+    """One dispatched block of K frames: graphed, the slot its output is
+    copied into and the event after that copy; op by op, its host output."""
+
+    K: int
+    shape: tuple = ()
+    slot: _Slot | None = None
+    event: torch.cuda.Event | None = None
+    out: np.ndarray | None = None
+    abandoned: bool = False
+    fetched: bool = False
+
+    def done(self) -> bool:
+        """Whether the device has finished the block and its copy."""
+        return self.event is None or self.event.query()
 
 
 @dataclasses.dataclass
@@ -123,8 +179,7 @@ class _Slab:
 
 class _BlockGraph:
     """One captured block of K frames: its graph, its injected-noise input
-    (or None), its output, the pinned host buffer the output is copied to,
-    and the kernel launches one replay makes."""
+    (or None), its output, and the kernel launches one replay makes."""
 
     def __init__(self, lane: "Lane", K: int, injected: bool):
         model = lane.model
@@ -160,25 +215,19 @@ class _BlockGraph:
         lane.slab.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.graph = graph
-        self.host = torch.empty(self.out.shape, dtype=torch.float32, pin_memory=True)
-        self.done = torch.cuda.Event()
         self.replays = 0
 
-    def replay(self) -> np.ndarray:
-        """Replay, copy the output to the host, wait once; a host copy of it."""
+    def replay(self) -> None:
+        """Queue one replay on the current stream (self.out is its output)."""
         self.graph.replay()
         add_launches(self.launches)
         self.replays += 1
-        self.host.copy_(self.out, non_blocking=True)
-        self.done.record()
-        self.done.synchronize()
-        return self.host.numpy().copy()
 
 
 class Lane:
-    """The buffers one chunk of B rows decodes in, and the block graphs
-    captured on them (see the module docstring). `graphed`: replay each
-    block, else call its body op by op. Op by op under a mesh the lane
+    """The buffers a stream's chunks of B rows decode in, and the block
+    graphs captured on them (see the module docstring). `graphed`: replay
+    each block, else call its body op by op. Op by op under a mesh the lane
     holds this rank's `rows` of a batch of `B_noise` rows, whose noise is
     drawn whole and sliced."""
 
@@ -196,8 +245,11 @@ class Lane:
         self.mimi = init_decoder_state(model.mimi_specs, B, model._dtype, dev)
         self.prev = torch.zeros((B, model.specs.ldim), dtype=torch.float32, device=dev)
         self.is_bos = torch.ones((B,), dtype=torch.bool, device=dev)
+        self.first_eos = torch.full((B,), NO_EOS, dtype=torch.int32, device=dev)
+        self.frames = torch.zeros((1,), dtype=torch.int32, device=dev)  # decoded this chunk
         self.gen = torch.Generator(device=dev)
         self.graphs: dict[tuple, _BlockGraph] = {}
+        self.tickets: list[Ticket] = []  # dispatched, not yet fetched or done and abandoned
         # a T=1 step of these rows takes the flash-decode kernel (not the
         # decode stack): its attended length must stay within MAX_ATT
         self.flash = graphed and not stack_takes_rows(model.specs.transformer,
@@ -206,12 +258,14 @@ class Lane:
     @property
     def nbytes(self) -> int:
         """Bytes of the lane's slabs and of its own buffers."""
-        own = tree_leaves(self.mimi) + [self.prev, self.is_bos]
+        own = tree_leaves(self.mimi) + [self.prev, self.is_bos, self.first_eos, self.frames]
         return (sum(s.nbytes for s in self.slabs.values())
                 + sum(t.numel() * t.element_size() for t in own))
 
     def start(self, seed: int | None, noise_source) -> None:
-        """A chunk's noise: `noise_source`, or the generator seeded with `seed`."""
+        """A chunk's noise: `noise_source`, or the generator seeded with `seed`.
+        The blocks already dispatched keep theirs (a replay reads the
+        generator's seed and offset as it is queued)."""
         self.noise_source = noise_source
         if noise_source is None:
             self.gen.manual_seed(seed)
@@ -262,7 +316,8 @@ class Lane:
 
     def begin(self, lm: StackState) -> None:
         """Start the blocks from `lm` (the prompt pass's state over the
-        slab): its offset and pointers, a fresh Mimi state, BOS on every row."""
+        slab): its offset and pointers, a fresh Mimi state, BOS on every
+        row, no EOS yet and no frame decoded."""
         if lm.k is not self.slab.k:
             raise ValueError("the prompt pass did not run on the lane's caches")
         self.slab.offset.copy_(lm.offset)
@@ -274,6 +329,8 @@ class Lane:
             dst.copy_(src)
         self.prev.zero_()
         self.is_bos.fill_(True)
+        self.first_eos.fill_(NO_EOS)
+        self.frames.zero_()
 
     def grow(self, capacity: int) -> None:
         """Move the caches to the slab of `capacity` slots (a larger bucket):
@@ -307,8 +364,8 @@ class Lane:
 
     def block(self, K: int, noise: torch.Tensor | None) -> torch.Tensor:
         """The body a graph holds: noise (drawn here when None), the block,
-        the new state copied back into the lane's buffers; returns
-        pack_block's output."""
+        the new state copied back into the lane's buffers, each row's first
+        EOS step and the frame count advanced; returns pack_block's output."""
         m = self.model
         if noise is None:
             noise = m._noise(self.gen, (K, self.B, m.specs.ldim))
@@ -321,50 +378,107 @@ class Lane:
         for dst, src in zip(tree_leaves(self.mimi), tree_leaves(mimi)):
             if dst is not src:
                 dst.copy_(src)
+        steps = self.frames + torch.arange(K, dtype=torch.int32, device=m.device)  # [K]
+        first = torch.where(flags, steps[:, None], NO_EOS).amin(dim=0)
+        torch.minimum(self.first_eos, first, out=self.first_eos)
+        self.frames.add_(K)
         return pack_block(flags, audio)
 
-    def run(self, K: int) -> tuple[np.ndarray, np.ndarray]:
-        """One block of K frames (captured first if its key is new when
-        graphed): the EOS flags [K, B] and audio [K, B, S] on the host."""
+    def _graph(self, K: int) -> _BlockGraph:
+        """The graph of a block of K frames at this lane's capacity and the
+        model's generation settings, captured if new."""
+        g = self.model.gen
+        injected = self.noise_source is not None
+        key = (K, self.slab.k.shape[2], g.lsd_decode_steps, g.eos_threshold,
+               "injected" if injected else ("device", g.temp, g.noise_clamp))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = _BlockGraph(self, K, injected)
+            with self.owner.lock:
+                self.graphs[key] = graph
+        return graph
+
+    def dispatch(self, K: int) -> Ticket:
+        """Queue one block of K frames (captured first if its key is new
+        when graphed) and return its ticket; op by op the block runs here."""
         m = self.model
         C = self.slab.k.shape[2]
         if not 0 <= self.write_pos <= C - K:
             raise ValueError(f"a block of {K} frames at write_pos {self.write_pos} overflows "
                              f"capacity {C}")
+        self.tickets = [t for t in self.tickets if not (t.fetched or t.abandoned and t.done())]
         if not self.graphed:
             noise = m._block_noise(self.gen, self.noise_source, K, self.B_noise)[:, self.rows]
-            out = self.block(K, noise).cpu().numpy()
+            ticket = Ticket(K, out=self.block(K, noise).cpu().numpy())
         else:
             if self.flash and self.write_pos + K - 1 > MAX_ATT:
                 raise NotImplementedError(f"flash_decode attends at most {MAX_ATT} slots "
                                           f"(write_pos {self.write_pos}, a block of {K})")
-            g = m.gen
-            injected = self.noise_source is not None
-            key = (K, C, g.lsd_decode_steps, g.eos_threshold,
-                   "injected" if injected else ("device", g.temp, g.noise_clamp))
-            graph = self.graphs.get(key)
-            if graph is None:
-                graph = _BlockGraph(self, K, injected)
-                with self.owner.lock:
-                    self.graphs[key] = graph
-            if injected:
-                graph.noise.copy_(torch.from_numpy(m._host_noise(self.noise_source, K, self.B)))
-            out = graph.replay()
+            graph = self._graph(K)
+            ticket = Ticket(K)
+            ticket.slot = self.owner.take_slot(ticket)
+            if graph.noise is not None:
+                host = ticket.slot.view("noise", tuple(graph.noise.shape))
+                host.copy_(torch.from_numpy(m._host_noise(self.noise_source, K, self.B)))
+                graph.noise.copy_(host, non_blocking=True)
+            graph.replay()
             self.owner.replays += 1
+            ticket.shape = tuple(graph.out.shape)
+            ticket.slot.view("out", ticket.shape).copy_(graph.out, non_blocking=True)
+            if m.device.type == "cuda":
+                ticket.event = torch.cuda.Event()
+                ticket.event.record()
+        self.tickets.append(ticket)
         self.write_pos += K
         m.decode_steps += K
+        return ticket
+
+    def fetch(self, ticket: Ticket) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for a dispatched block: its EOS flags [K, B] and audio
+        [K, B, S] on the host (the ticket's slot is then free)."""
+        if ticket.event is not None:
+            ticket.event.synchronize()
+        out = ticket.out
+        if ticket.slot is not None:
+            out = ticket.slot.view("out", ticket.shape).numpy().copy()
+            ticket.slot.ticket = None
+        ticket.fetched = True
         return unpack_block(out)
 
-    def final_state(self) -> StackState:
-        """The post-chunk state. Graphed, its caches in tensors of their own
-        (the lane's buffers serve later chunks); op by op, the slab's."""
+    def abandon(self, ticket: Ticket) -> None:
+        """A dispatched block whose output nobody reads (past the stop, or
+        a stream closed early): its slot is free once the device is done."""
+        ticket.abandoned = True
+
+    def settle(self) -> None:
+        """Wait until the device has finished every block dispatched in
+        this lane (before a slab or graph of it may go)."""
+        for t in self.tickets:
+            if t.event is not None:
+                t.event.synchronize()
+
+    def trim(self, offset: torch.Tensor, token_count: int, frames_after_eos: int,
+             max_gen_len: int) -> StackState:
+        """The post-chunk state for copy_state=False, on the device (the JAX
+        package's `_finalize_fn`): the caches in tensors of their own, the
+        offset advanced from the chunk's starting `offset` by the prompt and
+        every step the reference loop ran (each row's first EOS +
+        frames_after_eos + the break step, at most max_gen_len; max_gen_len
+        without an EOS before it), the slots at or past it masked
+        (pos = -1); the write pointer the host's (every dispatched frame)."""
         s = self.state()
-        if not self.graphed:
-            return s
-        return StackState(s.k.clone(), s.v.clone(), s.pos, s.offset, s.write_pos)
+        first = self.first_eos
+        stop = torch.where(first < max_gen_len,
+                           torch.clamp(first + frames_after_eos + 1, max=max_gen_len),
+                           max_gen_len)
+        final_offset = (offset + token_count + stop).to(torch.int32)
+        pos = torch.where(s.pos < final_offset[:, None], s.pos, -1)
+        return StackState(s.k.clone(), s.v.clone(), pos, final_offset, s.write_pos)
 
     def drop(self, C: int) -> int:
-        """Drop the slab of C slots and the graphs captured on it; its bytes."""
+        """Drop the slab of C slots and the graphs captured on it, once the
+        device is done with them; its bytes."""
+        self.settle()
         slab = self.slabs.pop(C)
         for key in [key for key in self.graphs if key[1] == C]:
             del self.graphs[key]
@@ -373,8 +487,8 @@ class Lane:
         return slab.nbytes
 
     def close(self) -> None:
-        """The chunk is over: the lane is free, and the idle slabs over the
-        budget go."""
+        """The stream is over (its tickets fetched or abandoned): the lane
+        is free, and the idle slabs over the budget go."""
         with self.owner.lock:
             self.busy = False
             if self.graphed:
@@ -382,8 +496,8 @@ class Lane:
 
 
 class StepGraphs:
-    """A model's lanes, by batch size, and what they may keep (see the
-    module docstring)."""
+    """A model's lanes, by batch size, what they may keep (see the module
+    docstring), and the host slots of the blocks in flight."""
 
     def __init__(self, model):
         self.model = model
@@ -392,40 +506,53 @@ class StepGraphs:
         self.weights: tuple = ()  # the (params, mimi_params) the lanes were made for
         self.budget: int | None = None  # bytes of slabs kept; None: KEEP_FRACTION of the card
         self.replays = 0  # every replay of this model's graphs
+        self.slots: list[_Slot] = []
+        self._next_slot = 0
         self.lock = threading.RLock()
         self._tick = 0
 
-    def acquire(self, B: int, seed: int | None, noise_source, rows: slice = slice(None),
-                B_noise: int | None = None) -> Lane:
-        """A lane for a chunk of B rows, its noise set (Lane.start). Graphed
-        (model._graphed()): a free lane of the model's (a new one when every
-        lane of B is held; every lane is dropped first when the model's
-        weights are not the ones the graphs were captured on). Else a lane
-        of its own, kept by nobody."""
+    def acquire(self, B: int, rows: slice = slice(None), B_noise: int | None = None) -> Lane:
+        """A lane for a stream of B rows (its noise is set per chunk,
+        Lane.start). Graphed (model._graphed()): a free lane of the model's
+        (a new one when every lane of B is held; every lane is dropped first
+        when the model's weights are not the ones the graphs were captured
+        on). Else a lane of its own, kept by nobody."""
         m = self.model
         if not m._graphed():
             lane = Lane(self, B, False, rows, B_noise)
             lane.busy = True
-        else:
-            with self.lock:
-                weights = (m.params, m.mimi_params)
-                if len(self.weights) != 2 or any(a is not b for a, b in zip(weights,
-                                                                            self.weights)):
-                    self.release()
-                    self.weights = weights
-                if self.stream is None and m.device.type == "cuda":
-                    self.stream = torch.cuda.Stream(m.device)
-                if self.budget is None and m.device.type == "cuda":
-                    self.budget = int(KEEP_FRACTION
-                                      * torch.cuda.get_device_properties(m.device).total_memory)
-                lanes = self.lanes.setdefault(B, [])
-                lane = next((ln for ln in lanes if not ln.busy), None)
-                if lane is None:
-                    lane = Lane(self, B, True)
-                    lanes.append(lane)
-                lane.busy = True
-        lane.start(seed, noise_source)
-        return lane
+            return lane
+        with self.lock:
+            weights = (m.params, m.mimi_params)
+            if len(self.weights) != 2 or any(a is not b for a, b in zip(weights, self.weights)):
+                self.release()
+                self.weights = weights
+            if self.stream is None and m.device.type == "cuda":
+                self.stream = torch.cuda.Stream(m.device)
+            if self.budget is None and m.device.type == "cuda":
+                self.budget = int(KEEP_FRACTION
+                                  * torch.cuda.get_device_properties(m.device).total_memory)
+            lanes = self.lanes.setdefault(B, [])
+            lane = next((ln for ln in lanes if not ln.busy), None)
+            if lane is None:
+                lane = Lane(self, B, True)
+                lanes.append(lane)
+            lane.busy = True
+            return lane
+
+    def take_slot(self, ticket: Ticket) -> _Slot:
+        """The next free slot of the ring (a new one when every slot is
+        held), now held by `ticket`."""
+        with self.lock:
+            n = len(self.slots)
+            i = next((j % n for j in range(self._next_slot, self._next_slot + n)
+                      if self.slots[j % n].free()), None)
+            if i is None:
+                i = n
+                self.slots.append(_Slot(pinned=self.model.device.type == "cuda"))
+            self._next_slot = (i + 1) % len(self.slots)
+            self.slots[i].ticket = ticket
+            return self.slots[i]
 
     def tick(self) -> int:
         self._tick += 1
@@ -439,7 +566,7 @@ class StepGraphs:
         """Drop idle slabs, least recently used first, until what is held
         and `nbytes` more fit `budget` (default: self.budget); then the idle
         lanes left with no slab. A slab is idle unless it is the current
-        slab of a lane a chunk holds."""
+        slab of a lane a stream holds."""
         budget = self.budget if budget is None else budget
         if budget is None:
             return
@@ -460,6 +587,9 @@ class StepGraphs:
     def release(self) -> None:
         """Drop every lane: the graphs, their pools and the buffers."""
         with self.lock:
+            for lanes in self.lanes.values():
+                for lane in lanes:
+                    lane.settle()
             self.lanes.clear()
 
     def stats(self) -> list[dict]:

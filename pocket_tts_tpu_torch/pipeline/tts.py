@@ -22,18 +22,31 @@ graph replay (pipeline/step_graphs.py: the counterpart of the JAX package's
 jitted `_fused_step_fn` / `_multi_step_fn`); the CPU and a mesh run the same
 block (`_decode_block`) op by op, in the same buffers (a `Lane`).
 Emission follows the JAX package exactly (`_ChunkEmit`): the frames after
-the first EOS, the frames-after-EOS allowance and the break step. The JAX
-package overlaps those copies with later dispatches on a background thread
-(`_FetchPipe`); here each block is copied when it is done.
+the first EOS, the frames-after-EOS allowance and the break step.
+
+The fetch pipeline (the JAX package's `_FetchPipe`, `_run_chunks` and the
+speculative blocks of `_dispatch_chunk`). A stream keeps PIPELINE_DEPTH
+blocks in flight: the host dispatches block i, then fetches and emits
+block i-1 while block i decodes. Block i is dispatched if and only if no
+block up to i-2 showed the stop, so the blocks decoded, the noise drawn and
+the slot watermark follow from the EOS flags alone, never from timing; a
+block dispatched past the stop is never fetched. One lane serves all of a
+stream's chunks, and their tickets wait in one FIFO (`_FetchPipe`): chunk
+N+1's load, prompt pass and first blocks are queued behind chunk N's last
+blocks while the host still emits chunk N's frames, in global order. With
+copy_state=False the post-chunk trim is computed on the device
+(`Lane.trim`, the JAX package's `_finalize_fn`), so no host read separates
+two chunks.
 
 A deliberate difference follows: with EOS on, the JAX package keeps
 dispatching speculative blocks until its fetch thread resolves the EOS
 block, so how many frames it asks of a `noise_source` depends on when its
-fetches complete; the port stops at the first block that shows EOS. A
-shared sequential source therefore feeds a later chunk other noise on the
-two sides. The emitted frames and offsets agree wherever the noise is keyed
-by (chunk, frame); the speculative slots (masked) move the JAX package's
-slot watermark past the port's.
+fetches complete; the port draws the blocks up to the stop and at most one
+more per chunk, fixed by the flags. A shared sequential source therefore
+feeds a later chunk other noise on the two sides. The emitted frames and
+offsets agree wherever the noise is keyed by (chunk, frame); the
+speculative slots (masked) move the JAX package's slot watermark past the
+port's, or to it.
 
 Batched generation (`generate_audio_batch`) runs B utterances as the rows of
 one state: one prompt pass over right-padded token rows with per-row true
@@ -73,6 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from collections import deque
 import math
 import os
 import time
@@ -163,6 +177,12 @@ FIRST_BLOCK_FRAMES = 2  # single-frame blocks up front (first-chunk latency)
 SCAN_BLOCK_FRAMES = 8  # frames per block while the stream ramps up
 MAX_BLOCK_FRAMES = 32  # steady-state frames per block (2.56 s of audio)
 RAMP_FRAMES = FIRST_BLOCK_FRAMES + 4 * SCAN_BLOCK_FRAMES
+# Blocks in flight: block i is dispatched before block i-1 is fetched, so
+# the device decodes while the host waits on, and emits, the block before.
+# Two is the JAX package's least speculation (one block past the fetched
+# one in its cold ramp), so the port never decodes more frames past the
+# stop than the reference does.
+PIPELINE_DEPTH = 2
 
 
 def _block_size(frames_started: int, warm: bool = False) -> int:
@@ -219,7 +239,9 @@ class NoiseSource:
 
 class _ChunkEmit:
     """Per-chunk emission accounting (the JAX package's rule): blocks resolve
-    through `emit` in order; `finish` applies the no-EOS contract."""
+    through `take` in dispatch order; `finish` applies the no-EOS contract
+    once the chunk's dispatches have ended and every block of it has
+    resolved (in a stream, possibly while the next chunk dispatches)."""
 
     def __init__(self, max_gen_len: int, frames_after_eos: int):
         self.max_gen_len = max_gen_len
@@ -228,6 +250,20 @@ class _ChunkEmit:
         self.emitted = 0
         self.stop = False
         self.frames_started = 0
+        self.dispatch_done = False
+        self.outstanding = 0  # blocks dispatched, not yet resolved
+
+    def take(self, lane, ticket, block_start: int, out: list) -> None:
+        """One of the chunk's blocks resolves: fetched and emitted, or, once
+        the chunk has stopped, abandoned unread."""
+        if self.stop:
+            lane.abandon(ticket)
+        else:
+            flags, audio = lane.fetch(ticket)  # [K, 1], [K, 1, 1920]
+            self.emit(block_start, flags, audio[:, :, None], out)
+        self.outstanding -= 1
+        if self.dispatch_done and self.outstanding == 0:
+            self.finish()
 
     def emit(self, block_start: int, flags, audio, out: list) -> None:
         if self.stop:
@@ -254,6 +290,32 @@ class _ChunkEmit:
                 raise RuntimeError("Generation reached maximum length without EOS!")
             logger.warning("Maximum generation length reached without EOS; "
                            "this very often indicates an error.")
+
+
+class _FetchPipe:
+    """A stream's dispatched blocks, oldest first, across its chunks (the
+    JAX package's `_FetchPipe`, with the lane's tickets in place of its
+    fetch thread): each resolves through its `take(lane, ticket, start,
+    out)`, and the frames it emits wait in `out`."""
+
+    def __init__(self):
+        self.pending: deque = deque()  # (lane, ticket, first frame, take)
+        self.out: list[np.ndarray] = []
+
+    def submit(self, lane, ticket, start: int, take: Callable) -> None:
+        self.pending.append((lane, ticket, start, take))
+
+    def resolve(self, keep: int) -> None:
+        """Resolve the oldest blocks until at most `keep` are in flight."""
+        while len(self.pending) > keep:
+            lane, ticket, start, take = self.pending.popleft()
+            take(lane, ticket, start, self.out)
+
+    def abandon(self) -> None:
+        """The stream ends early (a closed generator): nothing left is read."""
+        while self.pending:
+            lane, ticket, _, _ = self.pending.popleft()
+            lane.abandon(ticket)
 
 
 def _default_device() -> torch.device:
@@ -690,18 +752,18 @@ class TTSModel:
             self.tokenizer, text_to_generate, max_tokens,
             self.pad_with_spaces_for_short_inputs, self.remove_semicolons,
         )
+        specs = []
         for i, chunk in enumerate(chunks):
             _, guess = prepare_text_prompt(chunk, self.pad_with_spaces_for_short_inputs,
                                            self.remove_semicolons)
-            spec = dict(
+            specs.append(dict(
                 tokens=self._encode_text(chunk),
                 frames_after_eos=frames_after_eos if frames_after_eos is not None else guess + 2,
                 warm_start=i > 0,
                 seed=None if seed is None else
                 int(np.random.SeedSequence([seed, i]).generate_state(1)[0]),
-            )
-            yield from self._generate_chunk(model_state, spec, noise_source,
-                                            write_back=not copy_state)
+            ))
+        yield from self._run_chunks(model_state, specs, noise_source, write_back=not copy_state)
 
     def generate_audio_stream_from_tokens(
         self,
@@ -720,11 +782,43 @@ class TTSModel:
         at 32-frame blocks (a chunk after the first of a long text)."""
         spec = dict(tokens=tokens, frames_after_eos=frames_after_eos, warm_start=warm_start,
                     seed=seed, max_gen_len=max_gen_len)
-        yield from self._generate_chunk(model_state, spec, noise_source, write_back=write_back)
+        yield from self._run_chunks(model_state, [spec], noise_source, write_back=write_back)
 
-    def _generate_chunk(self, model_state: StackState, spec: dict,
-                        noise_source: Callable | None, write_back: bool) -> Iterator[np.ndarray]:
+    def _run_chunks(self, model_state: StackState, specs: list[dict],
+                    noise_source: Callable | None, write_back: bool) -> Iterator[np.ndarray]:
+        """The chunks of one stream in one lane, through one fetch pipe (the
+        JAX package's `_run_chunks`): each chunk is dispatched as soon as the
+        last one's dispatches end, and the stream's last blocks are fetched
+        once, after its last chunk. A generator closed early abandons the
+        blocks in flight and frees the lane."""
         t_start = time.monotonic()
+        pipe = _FetchPipe()
+        runs: list[_ChunkEmit] = []
+        lane = self.step_graphs.acquire(1)
+        try:
+            for spec in specs:
+                runs.append((yield from self._generate_chunk(model_state, spec, noise_source,
+                                                             lane, pipe, write_back)))
+            pipe.resolve(0)
+            while pipe.out:
+                yield pipe.out.pop(0)
+        finally:
+            pipe.abandon()
+            lane.close()
+        dur_ms = sum(r.emitted for r in runs) * self.samples_per_frame * 1000 / self.sample_rate
+        wall_ms = (time.monotonic() - t_start) * 1000
+        logger.info("Generated %d ms of audio in %d ms (%.2fx real-time)",
+                    int(dur_ms), int(wall_ms), dur_ms / max(wall_ms, 1e-6))
+
+    def _generate_chunk(self, model_state: StackState, spec: dict, noise_source: Callable | None,
+                        lane, pipe: _FetchPipe, write_back: bool):
+        """Dispatch one chunk in `lane`: its working copy, text prompt and
+        blocks (PIPELINE_DEPTH in flight), yielding the frames of `pipe`'s
+        blocks as they resolve, this chunk's or an earlier one's. Returns
+        the chunk's _ChunkEmit once its dispatches end, its last blocks still
+        in flight. With `write_back` (copy_state=False) `model_state` then
+        receives the device trim of the post-chunk state (`Lane.trim`); its
+        write_pos is the host's count of every slot written."""
         tokens = spec["tokens"]
         token_count = len(tokens)
         max_gen_len = spec.get("max_gen_len") or self._estimate_max_gen_len(token_count)
@@ -736,49 +830,33 @@ class TTSModel:
             tp = self._tp
             seed = self._seed(spec.get("seed"),
                               [tp.group] if tp is not None and tp.size > 1 else [])
-        blocks = self.step_graphs.acquire(1, seed, noise_source)
-        try:
-            lm_state = blocks.load(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
-            blocks.begin(self._prompt_text_tokens(lm_state, [tokens]))
-            run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
-            out: list[np.ndarray] = []
-            start_slots = slots_used + pad_to
-            frames_started = 0
-            while frames_started < max_gen_len and not run.stop:
-                K = _block_size(frames_started, warm=spec.get("warm_start", False))
-                blocks.grow(_bucket(start_slots + frames_started + K, CAPACITY_BUCKETS))
-                host_flags, host_audio = blocks.run(K)  # [K, 1], [K, 1, 1920]
-                run.emit(frames_started, host_flags, host_audio[:, :, None], out)
-                frames_started += K
-                while out:
-                    yield out.pop(0)
-            run.frames_started = frames_started
+        lane.start(seed, noise_source)
+        offset = model_state.offset
+        lm_state = lane.load(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
+        lane.begin(self._prompt_text_tokens(lm_state, [tokens]))
+        run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
+        start_slots = slots_used + pad_to
+        frames_started = 0
+        while frames_started < max_gen_len and not run.stop:
+            K = _block_size(frames_started, warm=spec.get("warm_start", False))
+            lane.grow(_bucket(start_slots + frames_started + K, CAPACITY_BUCKETS))
+            pipe.submit(lane, lane.dispatch(K), frames_started, run.take)
+            run.outstanding += 1
+            frames_started += K
+            pipe.resolve(PIPELINE_DEPTH - 1)
+            while pipe.out:
+                yield pipe.out.pop(0)
+        run.frames_started = frames_started
+        run.dispatch_done = True
+        if run.outstanding == 0:
             run.finish()
-            if write_back:
-                self._write_back(model_state, blocks.final_state(), run, token_count)
-        finally:
-            blocks.close()
-        dur_ms = run.emitted * self.samples_per_frame * 1000 / self.sample_rate
-        wall_ms = (time.monotonic() - t_start) * 1000
-        logger.info("Generated %d ms of audio in %d ms (%.2fx real-time)",
-                    int(dur_ms), int(wall_ms), dur_ms / max(wall_ms, 1e-6))
-
-    def _write_back(self, model_state: StackState, lm_state: StackState, run: _ChunkEmit,
-                    token_count: int) -> None:
-        """copy_state=False: hand the caller the post-chunk state, offset
-        advanced by the prompt and every step the reference loop ran (the
-        first EOS + frames_after_eos + the break step, capped at
-        max_gen_len); later speculative slots are masked out."""
-        if run.eos_step is not None:
-            stop = min(run.eos_step + run.frames_after_eos + 1, run.max_gen_len)
-        else:
-            stop = run.max_gen_len
-        final_offset = (model_state.offset + token_count + stop).to(torch.int32)
-        model_state.k, model_state.v = lm_state.k, lm_state.v
-        model_state.pos = torch.where(lm_state.pos < final_offset[:, None], lm_state.pos, -1)
-        model_state.offset = final_offset
-        model_state.write_pos = lm_state.write_pos
-        model_state.write_ptr = None
+        if write_back:
+            trimmed = lane.trim(offset, token_count, run.frames_after_eos, max_gen_len)
+            model_state.k, model_state.v = trimmed.k, trimmed.v
+            model_state.pos, model_state.offset = trimmed.pos, trimmed.offset
+            model_state.write_pos = trimmed.write_pos
+            model_state.write_ptr = None
+        return run
 
     def _prompt_text_tokens(self, lm_state: StackState, token_lists: list[list[int]],
                             pad_to: int | None = None) -> StackState:
@@ -853,11 +931,33 @@ class TTSModel:
         capacity = _bucket(slots_used + pad_to, CAPACITY_BUCKETS)
         if seed is None and noise_source is None:
             seed = self._seed(seed, [] if self.mesh is None else mesh_groups(self.mesh))
-        loop = self.step_graphs.acquire(len(token_lists), seed, noise_source, rows, B)
+        loop = self.step_graphs.acquire(len(token_lists), rows, B)
+        loop.start(seed, noise_source)
         Bl = len(token_lists)
         eos_step = np.full((Bl,), -1, np.int64)
         end_step = np.full((Bl,), max_gen_len, np.int64)
         blocks: list[np.ndarray] = []  # [K, B, 1920] each
+        pipe = _FetchPipe()
+        done = False
+
+        def take(lane, ticket, start: int, _out) -> None:
+            """One block resolves in dispatch order: its rows' cuts folded
+            in, or, once every row has ended, abandoned unread."""
+            nonlocal done
+            if done:
+                lane.abandon(ticket)
+                return
+            host_flags, host_audio = lane.fetch(ticket)
+            blocks.append(host_audio)
+            for i in range(ticket.K):
+                s = start + i
+                if s >= max_gen_len:
+                    break
+                self._update_row_cuts(host_flags[i], s, eos_step, end_step, frames_after_eos)
+                if (end_step <= s).all():
+                    done = True
+                    break
+
         try:
             if batched:  # this rank's rows, as views: the working copy copies them
                 lm_state = loop.load(StackState(model_states.k[:, rows], model_states.v[:, rows],
@@ -869,23 +969,15 @@ class TTSModel:
             loop.begin(self._prompt_text_tokens(lm_state, token_lists, pad_to))
             start_slots = slots_used + pad_to
             step = 0
-            done = False
             while step < max_gen_len and not done:
                 K = _block_size(step)
                 loop.grow(_bucket(start_slots + step + K, CAPACITY_BUCKETS))
-                host_flags, host_audio = loop.run(K)
-                blocks.append(host_audio)
-                for i in range(K):
-                    s = step + i
-                    if s >= max_gen_len:
-                        break
-                    self._update_row_cuts(host_flags[i], s, eos_step, end_step,
-                                          frames_after_eos)
-                    if (end_step <= s).all():
-                        done = True
-                        break
+                pipe.submit(loop, loop.dispatch(K), step, take)
                 step += K
+                pipe.resolve(PIPELINE_DEPTH - 1)
+            pipe.resolve(0)
         finally:
+            pipe.abandon()
             loop.close()
 
         if (eos_step < 0).any():

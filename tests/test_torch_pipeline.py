@@ -22,6 +22,16 @@ from torch_port import frame_noise, host, port
 TEXT = "hello world test"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's ops on one thread: each is small, and beside other test
+    processes a pool of threads per op costs many times its work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
     jm = build_small_tts_model(seed=4)

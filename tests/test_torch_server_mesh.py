@@ -334,3 +334,30 @@ def test_heartbeat_timeout_on_a_lost_rank(tmp_path):
     for case in ("silent", "gone"):
         assert not out[f"{case}_healthy"], case
         assert out[f"{case}_s"] <= meta["timeout"] + HEALTH_MARGIN_S, (case, out[f"{case}_s"])
+
+
+@pytest.mark.parametrize("op", ["health", "tts"])
+def test_rank0_exits_past_a_follower_that_stopped_receiving(env, op):
+    """A follower whose main thread stops receiving after a request (its
+    heartbeat beating on: the watch sees nothing): the next op's send to
+    it, `health` from /health or `tts` from POST /tts, fails within
+    HEALTH_S + HEALTH_MARGIN_S (503), and a SIGINT then ends rank 0 with rc
+    0 within HEALTH_S + HEALTH_MARGIN_S: no send is left pending to hold
+    its exit."""
+    job = Job(env, f"deaf-{op}", mesh=(2, 1))
+    limit = HEALTH_S + HEALTH_MARGIN_S
+    try:
+        assert call(job.url, "/tts", b"text=deaf+after+this.", FORM)[0] == 200
+        t0 = time.monotonic()
+        if op == "health":
+            code, body = call(job.url, "/health", timeout=limit)
+        else:
+            code, body = call(job.url, "/tts", SHORT, FORM, timeout=limit)
+        assert code == 503, body
+        assert time.monotonic() - t0 <= limit
+        t0 = time.monotonic()
+        job.procs[0].send_signal(signal.SIGINT)
+        wait_ranks([job.procs[0]], limit)
+        assert time.monotonic() - t0 <= limit
+    finally:
+        job.kill()

@@ -45,13 +45,18 @@ def port_model(jm):
 def f32(tmp_path_factory):
     """The small model from one checkpoint of the port's seeded params,
     loaded by the JAX package (a second where its own random init takes
-    about twenty) and carried to the port through the bridge."""
+    about twenty) and carried to the port through the bridge. The port's
+    ops run on one thread: each is small, and beside other test processes
+    a pool of threads per op costs many times its work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     tmp = tmp_path_factory.mktemp("step_graph")
     ckpt, tok = write_small_port_checkpoint(tmp, seed=4)
     jm = jtts.TTSModel.load_model(config=write_small_config(tmp, "step_graph", tok,
                                                             weights_path=ckpt))
     jm.gen = jtts.GenerationParams(eos_threshold=EOS_THRESHOLD, lsd_decode_steps=2)
-    return jm, port_model(jm)
+    yield jm, port_model(jm)
+    torch.set_num_threads(threads)
 
 
 def jax_like(tree, template):
@@ -242,7 +247,7 @@ def test_device_noise_law(f32):
 class DirectGraph:
     """A step graph's stand-in on the CPU: the capture's warm-up runs (it
     must change nothing the chunk reads), then each replay calls the body
-    the graph would hold (Lane.block) on the lane's buffers."""
+    the graph would hold (Lane.block) on the lane's buffers, into `out`."""
 
     def __init__(self, lane, K, injected):
         self.lane, self.K = lane, K
@@ -252,7 +257,7 @@ class DirectGraph:
 
     def replay(self):
         self.replays += 1
-        return self.lane.block(self.K, self.noise).numpy().copy()
+        self.out = self.lane.block(self.K, self.noise)
 
 
 def test_lane_bookkeeping_matches_the_eager_loop(f32, monkeypatch):

@@ -289,7 +289,9 @@ def server_mesh(inp: dict, meta: dict) -> dict:
     that stops reading); rank 1 fails to tokenise a text with "fault" in it
     (a failure on one rank); every rank's first stream of a text with
     "retry" in it fails before its first step (a transient fault on every
-    rank). Ends when `serve` returns: rank 0's on SIGINT, a follower's on
+    rank); once a text with "deaf" in it is done, rank 1's main thread
+    stops receiving (it sleeps before its next receive; its heartbeat goes
+    on). Ends when `serve` returns: rank 0's on SIGINT, a follower's on
     `stop`."""
     import signal
 
@@ -306,6 +308,13 @@ def server_mesh(inp: dict, meta: dict) -> dict:
     real_write = server._QueueWriter.write
     failed_once = set()
     pause = {"armed": False}
+    deaf = {"armed": False}
+    real_receive = multihost.ControlPlane.receive
+
+    def receive(self):
+        if deaf["armed"]:
+            time.sleep(3600)
+        return real_receive(self)
 
     def stream(state, text, **kw):
         if "retry" in text and text not in failed_once:
@@ -318,6 +327,8 @@ def server_mesh(inp: dict, meta: dict) -> dict:
             if rank == 0 and "pause" in text and i == 1:
                 pause["armed"] = True
             yield chunk
+        if rank == 1 and "deaf" in text:
+            deaf["armed"] = True
 
     def write(self, data):
         if pause["armed"] and data:
@@ -332,6 +343,7 @@ def server_mesh(inp: dict, meta: dict) -> dict:
 
     model.generate_audio_stream, model._encode_text = stream, encode
     server._QueueWriter.write = write
+    multihost.ControlPlane.receive = receive
     signal.signal(signal.SIGINT, signal.default_int_handler)
     server.serve(model, "127.0.0.1", meta["port"], meta["voice"])
     return {"decode_steps": np.asarray(model.decode_steps)}
