@@ -59,8 +59,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      the counters its route predicts (a CUDA graph replay adds the launches
      its capture recorded) and that the callers' voice states are
      bit-unchanged, and prints audio-s/s beside the card's name and power
-     limit. Every unsharded serving path runs each block as one CUDA graph
-     replay (pipeline/step_graphs.py). The graph phase (`graph_vs_eager`)
+     limit. Every unsharded serving path runs each block, each text
+     prompt, each voice prompt and each Mimi encoder pass as one CUDA
+     graph replay (pipeline/step_graphs.py). The graph phase (`graph_vs_eager`)
      runs one request per path (b1 bf16, b32 bf16, b128 bf16, b1 int8 and
      6's 24l b1 bf16) graphed and op by op on the same seed: wall,
      audio-s/s, replays, device time and busy share (profiled), every
@@ -73,9 +74,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      four-chunk b1 bf16 stream with EOS forced on, copy_state True and
      False (`pipelined_streams`: the continued state's offset, pos and
      write pointer equal at both depths and trimmed as the reference loop
-     runs); `pipe summary` lines at the end. `graph_nodes` holds the
-     kernels of one replay of a b1 and a B=32 block graph (profiled, by
-     CUDA function name) to the launches their captures recorded;
+     runs); `pipe summary` lines at the end. The prompt phase
+     (`prompt_vs_eager`) runs the b1 bf16, b1 int8 and 24l b1 bf16
+     requests, a four-chunk b1 bf16 stream with EOS off and 5b's two wav
+     clones with the passes ahead of the blocks (text prompt, voice
+     prompt, Mimi encoder) graphed and op by op (`passes_op_by_op`; the
+     blocks graphed in both), in turns on one seed with a garbage
+     collection before each (first chunk or the gaps between chunks,
+     wall and audio-s/s, or a clone's ms between CUDA events; then device
+     time and busy share profiled), every result bit-equal, and prints
+     every kept pass graph's warm-up and capture ms and bytes (`prompt
+     summary` lines at the end). `graph_nodes` holds the kernels of one
+     replay of a b1 and a B=32 block graph, and of a b1 text-prompt graph
+     at pad_to 8 and 16 (profiled, by CUDA function name), to the launches
+     their captures recorded;
   5b. voice cloning at english.yaml width: the port's own random f32 params
      (a seeded generator) written as a safetensors checkpoint, load_model
      from it in bf16 without allow_random_init, two wav voices (10 s mono
@@ -1386,6 +1398,152 @@ def pipelined_vs_unpipelined(model, label: str, request, keep=None) -> dict:
     return PIPE_RESULTS[label]
 
 
+PROMPT_RESULTS: dict = {}  # label -> prompt_vs_eager's numbers
+
+
+@contextlib.contextmanager
+def passes_op_by_op(model):
+    """Inside, the text prompt, the voice prompt and the Mimi encoder run op
+    by op on the card (their bodies, as on the CPU), and the blocks stay
+    graph replays: prompt_vs_eager's baseline."""
+    from pocket_tts_tpu_torch.pipeline import step_graphs
+
+    real_prompt, real_pass = step_graphs.Lane.prompt, step_graphs.StepGraphs.run_pass
+
+    def prompt(self, token_lists, pad_to):
+        graphed, self.graphed = self.graphed, False
+        try:
+            return real_prompt(self, token_lists, pad_to)
+        finally:
+            self.graphed = graphed
+
+    def run_pass(self, *args):
+        had = self.model.__dict__.get("_graphed")
+        self.model._graphed = lambda: False
+        try:
+            return real_pass(self, *args)
+        finally:
+            if had is None:
+                del self.model._graphed
+            else:
+                self.model._graphed = had
+
+    step_graphs.Lane.prompt, step_graphs.StepGraphs.run_pass = prompt, run_pass
+    try:
+        yield
+    finally:
+        step_graphs.Lane.prompt, step_graphs.StepGraphs.run_pass = real_prompt, real_pass
+
+
+def pass_keys(model) -> list[str]:
+    """Every kept prompt and encoder graph of `model`: its key, warm-up and
+    capture ms, replays and the bytes it keeps."""
+    return [f"{st['kind']} {st['key']}: warm-up {1e3 * st['warmup_s']:.1f} ms, capture "
+            f"{1e3 * st['capture_s']:.1f} ms, {st['replays']} replays, "
+            f"{st['nbytes'] / 2**20:.2f} MiB" for st in model.step_graphs.pass_stats()]
+
+
+def prompt_vs_eager(model, label: str, request, same=None, timed: str = "wall") -> dict:
+    """`request()` with the passes ahead of the blocks (text prompt, voice
+    prompt, encoder) graphed, the serving default, and op by op
+    (passes_op_by_op), on one seed: a first run graphed (every key
+    captured), then the request timed in turns (op by op, graphed, graphed,
+    op by op; a garbage collection before each), then once more each under
+    the profiler (device time and busy share of the profiled window, a lower
+    bound). `request()` returns (result, {name: ms}); `timed` is "wall"
+    (the call's wall time, and audio-s/s when the result is audio) or
+    "events" (ms between CUDA events around it). Every result must equal
+    the first (`same`, default: bit-equal arrays). Prints each mode's
+    numbers and every kept pass graph's warm-up and capture ms and bytes."""
+    import numpy as np
+    import torch
+
+    same = same or (lambda a, b: a.shape == b.shape and np.array_equal(a, b))
+    ref, _ = request()
+    res = {m: dict(ms=[], extra=[]) for m in ("graphed", "op by op")}
+
+    def mode_ctx(mode):
+        return passes_op_by_op(model) if mode == "op by op" else contextlib.nullcontext()
+
+    for mode in ("op by op", "graphed", "graphed", "op by op"):
+        gc.collect()
+        with mode_ctx(mode):
+            if timed == "events":
+                (out, extra), ms = event_ms(request)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, extra = request()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        if not same(out, ref):
+            raise AssertionError(f"prompt {label}: the {mode} result differs from the first "
+                                 "graphed run's")
+        res[mode]["ms"].append(ms)
+        res[mode]["extra"].append(extra)
+    for mode, r in res.items():
+        gc.collect()
+        with mode_ctx(mode):
+            _, r["device_ms"], r["profiled_wall_ms"] = device_ms(request, wall=True)
+        r["busy"] = r["device_ms"] / r["profiled_wall_ms"]
+        if isinstance(ref, np.ndarray):
+            r["audio_s_per_s"] = ref.size / model.sample_rate / (sum(r["ms"]) / 2e3)
+
+    def line(r):
+        extra = "; ".join(f"{k} " + "/".join(f"{e[k]:.2f}" if isinstance(e[k], float)
+                                             else str(e[k]) for e in r["extra"])
+                          for k in r["extra"][0])
+        rate = f", {r['audio_s_per_s']:.2f} audio-s/s" if "audio_s_per_s" in r else ""
+        return (f"{'/'.join(f'{ms:.2f}' for ms in r['ms'])} ms{rate}, device "
+                f"{r['device_ms']:.2f} ms, {100 * r['busy']:.1f}% busy"
+                + (f"; {extra}" if extra else ""))
+
+    what = "between CUDA events" if timed == "events" else "wall"
+    print(f"prompt vs eager {label} ({what}): graphed {line(res['graphed'])} vs op by op "
+          f"{line(res['op by op'])}; results bit-equal [{card_line()}]")
+    print(f"prompt vs eager {label}: kept pass graphs: {'; '.join(pass_keys(model))}")
+    PROMPT_RESULTS[label] = dict(timed=timed, bit_equal=True, **{
+        f"{m}_{k}": v for m, r in res.items() for k, v in r.items()},
+        passes=model.step_graphs.pass_stats())
+    return PROMPT_RESULTS[label]
+
+
+def first_chunk_request(model, voice, text: str, seed: int):
+    """A prompt_vs_eager request: one streamed request, with its first chunk's ms."""
+    def request():
+        audio, first_ms = stream_request(model, voice, text, seed)
+        return audio, {"first chunk ms": first_ms}
+
+    return request
+
+
+def chunk_gaps_request(model, voice, text: str, seed: int, max_tokens: int):
+    """A prompt_vs_eager request: a streamed multi-chunk request with EOS
+    off (each chunk emits its length limit), with the ms from each chunk's
+    last frame to the next chunk's first, as the caller receives them."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.text.splitter import split_into_best_sentences
+
+    chunks = split_into_best_sentences(model.tokenizer, text, max_tokens,
+                                       model.pad_with_spaces_for_short_inputs,
+                                       model.remove_semicolons)
+    frames = np.cumsum([model._estimate_max_gen_len(len(model._encode_text(c)))
+                        for c in chunks])
+
+    def request():
+        stamps, out = [], []
+        for frame in model.generate_audio_stream(voice, text, max_tokens=max_tokens, seed=seed):
+            stamps.append(time.perf_counter())
+            out.append(frame)
+        if len(out) != frames[-1]:
+            raise AssertionError(f"chunk gaps: {len(out)} frames, want {frames.tolist()}")
+        gaps = [1e3 * (stamps[f] - stamps[f - 1]) for f in frames[:-1]]
+        return np.concatenate(out), {"gaps ms": "/".join(f"{g:.2f}" for g in gaps)}
+
+    return request
+
+
 # A four-chunk text at max_tokens=8 through the smoke's tokenizer: chunks of
 # 9, 5, 5 and 7 tokens, length limits 63, 46, 46 and 55 frames. With EOS
 # forced on at every frame the stop of a chunk with frames_after_eos=36 is
@@ -1470,51 +1628,83 @@ KERNEL_FUNCTIONS = {"decode_stack": ("stack_kernel",),
                     "codec_decode": ("conv_kernel", "convtr_kernel", "conv_tc_kernel")}
 
 
-def graph_nodes(model, states, token_lists: list[list[int]], label: str, K: int = 8) -> dict:
-    """The launch counts a captured block graph records (the wrapper calls
-    made during its capture, which each replay adds to the counters)
-    against the kernels one replay of it runs: a lane of the model takes
-    `states`, a prompt pass over `token_lists` and one block of K frames
-    (the graph, captured if its key is new), then one more under the
-    profiler. Each kernel's count must equal the recorded launches (the
-    codec's times its convs per call); a mismatch fails."""
+def replay_kernels(model, prof) -> dict:
+    """Each wrapper's kernels among a profile's device events, by CUDA
+    function name (the codec's kernels counted per conv)."""
     import re
 
+    import torch
+
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    got = {}
+    for kernel, fns in KERNEL_FUNCTIONS.items():
+        pattern = re.compile(r"(?<![\w])(?:" + "|".join(fns) + r")(?=[<(\s]|$)")
+        got[kernel] = sum(1 for n in names if pattern.search(n))
+    return got
+
+
+def hold_nodes(model, name: str, graph, prof) -> dict:
+    """One replay's kernels (profiled) against the launches its capture
+    recorded (the codec's times its convs per call); a mismatch fails."""
+    got = replay_kernels(model, prof)
+    per_call = {"codec_decode": codec_ops(model)}
+    want = {k: graph.launches.get(k, 0) * per_call.get(k, 1) for k in KERNEL_FUNCTIONS}
+    print(f"graph nodes {name}: kernels of one replay {got}, launches the capture recorded x "
+          f"kernels per call {want}")
+    if got != want or not any(want.values()):
+        raise AssertionError(f"graph nodes {name}: one replay ran {got}, the capture "
+                             f"recorded {want}")
+    GRAPH_RESULTS[f"nodes {name}"] = dict(replay=got, recorded=want)
+    return got
+
+
+def graph_nodes(model, states, token_lists: list[list[int]], label: str, K: int = 8,
+                prompts: tuple = ()) -> dict:
+    """The launch counts a captured graph records (the wrapper calls made
+    during its capture, which each replay adds to the counters) against the
+    kernels one replay of it runs: a lane of the model takes `states`, a
+    text prompt over `token_lists` and one block of K frames (the graphs,
+    captured if their keys are new), then one more block under the
+    profiler; then, for each pad_to of `prompts`, a text prompt of the first
+    row's tokens padded to it (its graph captured if new) and one more
+    under the profiler. Each kernel's count must equal the recorded
+    launches (the codec's times its convs per call); a mismatch fails."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from pocket_tts_tpu_torch.pipeline.tts import CAPACITY_BUCKETS, _bucket
+    from pocket_tts_tpu_torch.pipeline.tts import CAPACITY_BUCKETS, PROMPT_BUCKETS, _bucket
 
     B = len(token_lists)
     lane = model.step_graphs.acquire(B)
     lane.start(0, None)
+    got = {}
     try:
         rows = states if isinstance(states, list) else [states]
-        lm = lane.load(states, _bucket(max(s.write_pos for s in rows) + 64, CAPACITY_BUCKETS))
-        lane.begin(model._prompt_text_tokens(lm, token_lists))
+        lane.load(states, _bucket(max(s.write_pos for s in rows) + 64, CAPACITY_BUCKETS))
+        lane.prompt(token_lists, _bucket(max(len(t) for t in token_lists), PROMPT_BUCKETS))
+        lane.begin()
         graph = lane._graph(K)
         lane.fetch(lane.dispatch(K))
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             lane.fetch(lane.dispatch(K))
             torch.cuda.synchronize()
+        got[f"K={K}"] = hold_nodes(model, f"{label} (B={B}, K={K})", graph, prof)
+        for pad_to in prompts:
+            tokens = [token_lists[0][:pad_to - 3]]
+            lane.prompt(tokens, pad_to)
+            graph = lane.prompts[(pad_to, lane.slab.k.shape[2])]
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lane.prompt(tokens, pad_to)
+                torch.cuda.synchronize()
+            got[f"prompt {pad_to}"] = hold_nodes(
+                model, f"{label} text prompt (B={B}, pad_to {pad_to})", graph, prof)
     finally:
+        lane.settle()
         lane.close()
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
-    per_call = {"codec_decode": codec_ops(model)}
-    got, want = {}, {}
-    for kernel, fns in KERNEL_FUNCTIONS.items():
-        pattern = re.compile(r"(?<![\w])(?:" + "|".join(fns) + r")(?=[<(\s]|$)")
-        got[kernel] = sum(1 for n in names if pattern.search(n))
-        want[kernel] = graph.launches.get(kernel, 0) * per_call.get(kernel, 1)
-    print(f"graph nodes {label} (B={B}, K={K}): kernels of one replay {got}, launches the "
-          f"capture recorded x kernels per call {want} ({len(names)} device events in all)")
-    if got != want or not any(want.values()):
-        raise AssertionError(f"graph nodes {label}: one replay ran {got}, the capture "
-                             f"recorded {want}")
-    GRAPH_RESULTS[f"nodes {label}"] = dict(replay=got, recorded=want)
     return got
 
 
@@ -1581,7 +1771,10 @@ def run_main_path(tmp: Path):
     pipelined_vs_unpipelined(model, "b1 bf16",
                              lambda: stream_request(model, voice, MAIN_TEXTS[1], seed=5))
     pipelined_streams(model, voice)
-    graph_nodes(model, voice, [model._encode_text(MAIN_TEXTS[0])], "b1 bf16")
+    prompt_vs_eager(model, "b1 bf16", first_chunk_request(model, voice, MAIN_TEXTS[1], seed=5))
+    prompt_vs_eager(model, "4-chunk stream b1 bf16",
+                    chunk_gaps_request(model, voice, STREAM_TEXT, 32, STREAM_MAX_TOKENS))
+    graph_nodes(model, voice, [model._encode_text(MAIN_TEXTS[0])], "b1 bf16", prompts=(8, 16))
     # enough rows for every decode-stack and codec kernel
     profile("one generate_audio request",
             lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=4), top=16)
@@ -1755,6 +1948,8 @@ def run_batched_paths(tmp: Path, model, voice) -> dict:
                                                                        seed=402))
     pipelined_vs_unpipelined(q_model, "b1 int8",
                              lambda: stream_request(q_model, q_voice, BATCH_TEXTS[0], seed=402))
+    prompt_vs_eager(q_model, "b1 int8",
+                    first_chunk_request(q_model, q_voice, BATCH_TEXTS[0], seed=402))
     print(f"int8 paths: {time.perf_counter() - t0:.1f} s with the load and the profile")
     return paths
 
@@ -1780,6 +1975,8 @@ def run_24l_paths(tmp: Path) -> dict:
                                                                        seed=504))
             pipelined_vs_unpipelined(model, label, lambda: stream_request(
                 model, voice, MAIN_TEXTS[1], seed=504))
+            prompt_vs_eager(model, label, first_chunk_request(model, voice, MAIN_TEXTS[1],
+                                                              seed=504))
         if quant is None:  # where a 24-layer request and its first chunk spend their time
             profile(f"one {label} request",
                     lambda: model.generate_audio(voice, MAIN_TEXTS[1], seed=502), top=12)
@@ -1919,6 +2116,11 @@ def run_voice_cloning(tmp: Path) -> tuple[dict, dict]:
     print(f"voice cloning LRU(2) a, b, a: hits {hits}, launches {clone_counts}")
     enc_bf16 = encoder_ms(model, voices["a"][0], "bf16")
     encoder_ms(model, voices["b"][0], "bf16")
+    for name, (path, secs, _, _) in voices.items():
+        kind, audio = model.resolve_voice(str(path))  # read and resampled once, on the host
+        prompt_vs_eager(model, f"clone {secs:.0f} s {path.name}",
+                        lambda audio=audio: (model.state_for_audio_array(audio), {}),
+                        same=same_state, timed="events")
 
     # f32 on the card against the CPU, the same checkpoint and voice
     card32 = TTSModel.load_model(config=config, eos_threshold=1e9)
@@ -2932,6 +3134,10 @@ def main() -> int:
     for label, r in PIPE_RESULTS.items():
         print(f"pipe summary {label}: " + json.dumps(
             {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}))
+    for label, r in PROMPT_RESULTS.items():
+        print(f"prompt summary {label}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()},
+            default=str))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{card_line()}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -203,8 +203,9 @@ def encode_to_latent(specs: MimiSpecs, params: dict, audio: torch.Tensor) -> tor
     """Wav [B, 1, T] -> latents [B, inner_dim, ceil(T/1920)], one shot: pad to a
     whole frame, SEANet encode, the windowed transformer over the whole
     sequence, the strided downsample to 12.5 Hz. Every stage is causal, so
-    the JAX package's extra padding to a frame bucket (sliced off again)
-    changes no latent: the port encodes at the true length."""
+    the padding to a frame bucket that voice cloning adds (as the JAX
+    package does, and sliced off again: pipeline/tts.voice_conditioning)
+    changes no kept latent."""
     fs = specs.frame_size
     pad = get_extra_padding_for_conv1d(audio.shape[-1], fs, fs)
     if pad:

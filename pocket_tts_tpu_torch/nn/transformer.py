@@ -26,11 +26,13 @@ new rows into the state's k/v/pos tensors. A caller that must keep a state
 (a voice state reused by the next request) clones it first, as
 pipeline/tts.py does at chunk start.
 
-A T=1 step reads the write pointer from the device (`StackState.write_ptr`,
-or one filled in from the host's `write_pos`): the decode-stack and
-flash-decode kernels take it from device memory, and the step's append
-writes at it by index, so no host value of it is baked into a CUDA graph of
-several steps (pipeline/tts.py's step graphs).
+Every append over the linear cache, a T=1 step's and a prompt's T>1 block
+alike, writes at the write pointer on the device (`StackState.write_ptr`,
+or one filled in from the host's `write_pos`) by index and advances it
+there: the decode-stack and flash-decode kernels take it from device memory
+too, so no host value of it is baked into a CUDA graph (the block and
+prompt graphs of pipeline/step_graphs.py). The host keeps its own copy for
+the capacity check.
 
 Under a mesh (`cfg.tp` set, parallel/mesh.py) the decode stack is refused,
 as the JAX package drops its packed stack under any mesh: a T=1 step takes
@@ -223,22 +225,27 @@ def append_kv(
     state: StackState,
     ks: torch.Tensor,
     vs: torch.Tensor,
+    wp: torch.Tensor,
     *,
     true_len: torch.Tensor | int | None = None,
 ) -> StackState:
-    """Append a block of new K/V ([L, B, T, H, Dh]) at the shared write pointer,
-    in place. `true_len` ([B] or int): rows' real token counts in the
-    (right-padded) block; padding slots get pos = -1."""
+    """Append a block of new K/V ([L, B, T, H, Dh]) at the device write
+    pointer `wp` (int32 [1]), in place and without a host read: slots
+    wp .. wp + T - 1 of k, v and pos, then both pointers advance by T.
+    `true_len` ([B] or int): rows' real token counts in the (right-padded)
+    block; padding slots get pos = -1 and offsets advance by it. The host's
+    copy of the pointer (`state.write_pos`) checks the capacity."""
     T = ks.shape[2]
-    slot = state.write_pos
     C = state.k.shape[2]
-    if not 0 <= slot <= C - T:
+    if not 0 <= state.write_pos <= C - T:
         # the JAX package's dynamic_update_slice would clamp the slot and
         # silently overwrite the last real slots; the port refuses
-        raise ValueError(f"append of {T} slots at write_pos {slot} overflows capacity {C}")
-    state.k[:, :, slot:slot + T] = ks.to(state.k.dtype)
-    state.v[:, :, slot:slot + T] = vs.to(state.v.dtype)
+        raise ValueError(f"append of {T} slots at write_pos {state.write_pos} overflows "
+                         f"capacity {C}")
     t = torch.arange(T, dtype=torch.int32, device=state.offset.device)
+    idx = wp.long() + t.long()
+    state.k.index_copy_(2, idx, ks.to(state.k.dtype))
+    state.v.index_copy_(2, idx, vs.to(state.v.dtype))
     new_pos = state.offset[:, None] + t[None, :]
     if true_len is None:
         inc = T
@@ -247,28 +254,10 @@ def append_kv(
         inc = tl
         new_pos = torch.where(t[None, :] < tl.expand(state.offset.shape)[:, None],
                               new_pos, -1)
-    state.pos[:, slot:slot + T] = new_pos
+    state.pos.index_copy_(1, idx, new_pos)
     return StackState(k=state.k, v=state.v, pos=state.pos,
                       offset=(state.offset + inc).to(torch.int32),
-                      write_pos=slot + T)
-
-
-def append_step(state: StackState, ks: torch.Tensor, vs: torch.Tensor,
-                wp: torch.Tensor) -> StackState:
-    """append_kv for one fully valid step ([L, B, 1, H, Dh]) at the device
-    write pointer `wp` (int32 [1]), in place and without a host read; both
-    pointers advance by one."""
-    C = state.k.shape[2]
-    if not 0 <= state.write_pos < C:  # the host's copy of the pointer
-        raise ValueError(f"append of 1 slot at write_pos {state.write_pos} overflows "
-                         f"capacity {C}")
-    idx = wp.long()
-    state.k.index_copy_(2, idx, ks.to(state.k.dtype))
-    state.v.index_copy_(2, idx, vs.to(state.v.dtype))
-    state.pos.index_copy_(1, idx, state.offset[:, None])
-    return StackState(k=state.k, v=state.v, pos=state.pos,
-                      offset=(state.offset + 1).to(torch.int32),
-                      write_pos=state.write_pos + 1, write_ptr=wp + 1)
+                      write_pos=state.write_pos + T, write_ptr=wp + T)
 
 
 def shift_kv(state: StackState, ks: torch.Tensor, vs: torch.Tensor) -> StackState:
@@ -320,13 +309,12 @@ def transformer_apply(
     dh = cfg.d_model // cfg.num_heads
     att = None  # attended slots: all of them
     flash = False
-    wp = None  # the device write pointer of a T=1 step
+    if not window and T == 1 and stack_takes(cfg, params, x):
+        return decode_stack_apply(cfg, params, x, state)
+    wp = None if window else device_int(
+        state.write_ptr if state.write_ptr is not None else state.write_pos, x.device)
     if not window and T == 1:
-        if stack_takes(cfg, params, x):
-            return decode_stack_apply(cfg, params, x, state)
         att = min(state.write_pos, C)  # the host's copy: the route, the CPU's plain loop
-        wp = device_int(state.write_ptr if state.write_ptr is not None else state.write_pos,
-                        x.device)
         flash = cfg.context is None and flash_decode_takes(att, dh)
         if not flash and x.device.type != "cpu":
             raise NotImplementedError(
@@ -360,6 +348,4 @@ def transformer_apply(
         if increment is not None:
             raise ValueError("window caches take full (unpadded) blocks")
         return h, shift_kv(state, ks, vs)
-    if wp is not None and increment is None:
-        return h, append_step(state, ks, vs, wp)
-    return h, append_kv(state, ks, vs, true_len=increment)
+    return h, append_kv(state, ks, vs, wp, true_len=increment)

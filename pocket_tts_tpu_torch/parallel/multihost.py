@@ -161,7 +161,12 @@ class ControlPlane:
       instead of hanging. A follower waits for rank 0 as long as rank 0
       takes (IDLE_TIMEOUT_S; a gloo group's timeout is each process's own):
       rank 0 may reach an agreement long after it, held by a client that
-      reads slowly.
+      reads slowly. The other way round, a follower may reach an agreement
+      long after rank 0 (a data-parallel rank decodes its own stream, and
+      a loaded host slows one process more than another), so rank 0 enters
+      an agreement's all-reduce only once every follower has arrived at it
+      (`agree`: a counter of arrivals per follower in the job's store),
+      waiting as long as their heartbeats move.
     Heartbeats: each follower adds one to a counter of its own in the job's
     store every BEAT_S; `watch` (rank 0) reports a follower whose counter
     has stood still for `health_timeout`. That is the one sign of a lost
@@ -187,6 +192,7 @@ class ControlPlane:
         self.ops = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=wait_s))
         self.ctl = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=wait_s))
         self._store = dist.distributed_c10d._get_default_store()
+        self._agreements = 0  # agreements this process has entered
         self._closed = threading.Event()
         self._thread: threading.Thread | None = None
         if self.rank:
@@ -198,6 +204,9 @@ class ControlPlane:
 
     def _beat_key(self, rank: int) -> str:
         return f"control-plane/{self.ctl.group_name}/beat/{rank}"
+
+    def _arrival_key(self, rank: int) -> str:
+        return f"control-plane/{self.ctl.group_name}/arrived/{rank}"
 
     def _beat(self) -> None:
         key = self._beat_key(self.rank)
@@ -286,10 +295,40 @@ class ControlPlane:
         return self.OPS[op], json.loads(data[:n_meta]) if n_meta else {}, data[n_meta:]
 
     def agree(self, *flags: bool) -> list[bool]:
-        """Each flag, set where any process set it (every process calls)."""
+        """Each flag, set where any process set it (every process calls, in
+        the same order). A follower marks its arrival first; rank 0 waits
+        for every follower's (`_await_arrivals`) before the all-reduce, so
+        a follower that is slower but alive is waited for."""
+        self._agreements += 1
+        if self.rank:
+            self._call(self._store.add, self._arrival_key(self.rank), 1)
+        else:
+            self._await_arrivals(self._agreements)
         t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
         self._call(dist.all_reduce, t, op=dist.ReduceOp.MAX, group=self.ctl)
         return [bool(v) for v in t]
+
+    def _await_arrivals(self, n: int) -> None:
+        """Rank 0: wait until every follower has arrived at its `n`th
+        agreement, as long as each one still missing beats; raises
+        ControlPlaneError when one's heartbeat stands still for
+        `health_timeout` (gone or its host stuck) or the plane is closed."""
+        seen: dict[int, tuple[int, float]] = {}
+        while True:
+            missing = [r for r in range(1, self.size)
+                       if self._call(self._store.add, self._arrival_key(r), 0) < n]
+            if not missing:
+                return
+            now = time.monotonic()
+            for r in missing:
+                beats = self._call(self._store.add, self._beat_key(r), 0)
+                if r not in seen or seen[r][0] != beats:
+                    seen[r] = (beats, now)
+                elif now - seen[r][1] > self.health_timeout:
+                    raise ControlPlaneError(f"process {r} sent no heartbeat for "
+                                            f"{now - seen[r][1]:.1f} s before an agreement")
+            if self._closed.wait(BEAT_S / 10):
+                raise ControlPlaneError("the control plane closed before an agreement")
 
     def count(self) -> int:
         """The processes that answer: every process contributes 1."""

@@ -1,7 +1,11 @@
 """The block loop of a chunk, and on the card each block of K frames as one
 CUDA graph replay: the port's counterpart of the JAX package's compiled
 decode step (`_fused_step_fn` for K=1 and `_multi_step_fn` for K>1, under
-`jax.jit` in pocket_tts_tpu/pipeline/tts.py).
+`jax.jit` in pocket_tts_tpu/pipeline/tts.py). The passes ahead of the blocks
+replay as graphs too: a chunk's text prompt (`Lane.prompt`, the JAX
+package's `_text_prompt_fn`), and, outside any lane, the voice prompt and
+the Mimi encoder of a voice clone (`StepGraphs.run_pass`, its
+`_audio_prompt_fn` and `_encode_fn`).
 
 A block is K FlowLM decode steps (each with its flow head), `project_latent`
 and the Mimi decoder over the block's latents (`TTSModel._decode_block`),
@@ -31,45 +35,69 @@ device write pointer), the Mimi decoder state, the previous latent, the
 rows' BOS flags, each row's first EOS step and the chunk's frame count
 (both updated inside the block, so the post-chunk trim, `Lane.trim`, needs
 no host read), and the flow-noise generator. A chunk copies its voice state
-into a slab (the working copy), and crossing a capacity bucket copies the
-caches into the next slab (`states.place_states` lays out both). The step's
-KV append and the decode-stack and flash-decode kernels read the write
-pointer from the device and the graph advances it there, so one graph
+into a slab (the working copy) and sets the device write pointer from the
+host's; crossing a capacity bucket copies the caches into the next slab
+(`states.place_states` lays out both). Every KV append over the FlowLM
+cache, a step's and a prompt's T>1 block alike, writes at the device write
+pointer by index and advances it there (nn/transformer.append_kv), and the
+decode-stack and flash-decode kernels read it from the device, so one graph
 serves every position of its capacity; the host keeps its own copy of the
-pointer, advances it by K per dispatch and checks the capacity before each.
-Inside a block the new offset, pointer, latent and Mimi state are copied
-back into the lane's buffers (a few KB a row). A lane is held by one stream
-at a time (every chunk of it, one after the other: the next chunk's load
-and prompt queue behind the last one's blocks): a second live stream of
-the same B takes a lane of its own.
+pointer, advances it by K per dispatch (pad_to per prompt) and checks the
+capacity before each. Inside a block the new offset, pointer, latent and
+Mimi state are copied back into the lane's buffers (a few KB a row); the
+text prompt advances the slab's offset and pointer in place. Its input, the
+rows' token ids and true lengths (int64 [B, pad_to + 1]), is a buffer of its
+graph, copied in from a pinned slot of the ring (`StepGraphs.upload`) as
+injected noise is. A lane is held by one stream at a time (every chunk of
+it, one after the other: the next chunk's load, prompt and first blocks
+queue behind the last one's blocks on the same stream, with no host read
+between them): a second live stream of the same B takes a lane of its own.
 
-Memory. The K graphs of one slab share one memory pool. A graphed lane
-keeps the slabs it reached, with their graphs, for the chunks after it,
-within `StepGraphs.budget` bytes (caches, pools and the lanes' own
-buffers) over all of a model's lanes: before a slab is made, after a chunk
-leaves one for the next bucket, and when a stream ends, the idle slabs go,
-least recently used first, with their graphs and pools, and a lane left
-with none goes too. The slab a running chunk decodes in is never dropped,
-and a slab or graph goes only once the device has finished every block
-dispatched in its lane (`Lane.settle`). The budget is KEEP_FRACTION of the
-card's memory unless set; 0 keeps nothing between streams. A lane run op
-by op keeps nothing either.
+A pass outside the lanes (`run_pass`: a voice prompt, the encoder) keeps its
+own fixed buffers: the voice prompt a conditioning buffer [B, pad_to, D]
+(f32, the BOS row first where the config inserts it, zeros past the true
+length), its true length and a blank cache that the body makes blank again
+(positions -1, offset and pointer 0) before the pass; the encoder a wav
+buffer [B, 1, frames * 1920] zero-padded to the frame bucket. A call fills
+the buffers, replays, and copies the result into tensors of the caller's
+(the voice state the LRU keeps, the latents cut back to the voice's frames),
+all under the model's lock: the server's threads share the passes, and no
+later replay writes what a caller holds.
 
-Keys: (K, C) within a lane of B rows, and what a graph bakes in: lsd steps,
-the EOS threshold, and the noise (drawn on the device with its temperature
-and clamp, or injected). A graph also bakes in the weights' addresses: the
-lanes belong to the model's `params` and `mimi_params` as they were at
-capture, and a model given other ones (the quantization sweep swaps int8
-configurations into one model) drops every lane first.
+Memory. The block and text-prompt graphs of one slab share one memory
+pool, and each pass outside the lanes has a pool of its own. A graphed lane
+keeps the slabs it reached, with their graphs, for the chunks after it, and
+the model keeps its passes, within `StepGraphs.budget` bytes (caches,
+pools, the lanes' and the passes' own buffers) over all of a model's lanes
+and passes: before a slab or a pass is made, after a chunk leaves a slab
+for the next bucket, after a pass runs and when a stream ends, the idle
+slabs and passes go, least recently used first, with their graphs and
+pools, and a lane left with none goes too. The slab a running chunk
+decodes in and a running pass are never dropped, and a slab or pass goes
+only once the device has finished with it (`Lane.settle`, `_Pass.settle`).
+The budget is KEEP_FRACTION of the card's memory unless set; 0 keeps
+nothing between calls. Op by op nothing is kept.
 
-Capture. Before a key's capture the block runs once op by op on the
+Keys: a block graph's (K, C) within a lane of B rows, and what it bakes in:
+lsd steps, the EOS threshold, and the noise (drawn on the device with its
+temperature and clamp, or injected); a text prompt's (pad_to, C) within a
+lane of B rows, pad_to from PROMPT_BUCKETS; a voice prompt's (B, pad_to, C);
+the encoder's (B, frame bucket), the JAX package's frame buckets
+(pipeline/tts.py ENCODER_FRAME_BUCKETS). Every graph also bakes in the
+weights' addresses: the graphs belong to the model's `params` and
+`mimi_params` as they were at capture, and a model given other ones (the
+quantization sweep swaps int8 configurations into one model) drops every
+lane and pass first.
+
+Capture. Before a key's capture the pass runs once op by op on the
 capture's stream as its warm-up (the libraries' lazy set-up, such as a
 thread's first cuDNN handle or a cuBLAS workspace for the stream, cannot
-be captured). The warm-up reads the lane's caches and writes only the K
-slots the block is about to write (the replay writes them again before any
-step attends them); the offset, pointer, Mimi state, latent and BOS flags
-it runs on are copies, and the device noise comes from a throwaway
-generator, so the warm-up changes no state the chunk reads.
+be captured). A block's or a text prompt's warm-up reads the lane's caches
+and writes only the slots the replay is about to write (it writes them
+again before anything attends them); the offset, pointer, Mimi state,
+latent and BOS flags it runs on are copies, and the device noise comes from
+a throwaway generator, so the warm-up changes no state the chunk reads. A
+pass outside the lanes warms up on its own buffers.
 
 Launch counts: a kernel wrapper counts its Python calls. The warm-up's
 calls launch their kernels and stay counted (`warm_ups` counts its decode
@@ -78,7 +106,8 @@ as the graph's launches per replay, which each replay adds
 (ops/build.add_launches).
 
 A capture, replay or copy that fails raises: there is no op-by-op or
-unpipelined carry-on on the card.
+unpipelined carry-on on the card. On the CPU and under a mesh every pass
+runs the same body op by op.
 """
 
 from __future__ import annotations
@@ -116,24 +145,26 @@ def unpack_block(out: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 class _Slot:
-    """Host memory of one dispatched block: its packed output is copied
-    into `out`, its injected noise copied from `noise` (pinned on the card,
-    each grown to the largest block it has served). Held by one ticket."""
+    """Host memory of one dispatched block or upload: a block's packed
+    output is copied into `out`, its injected noise copied from `noise`, a
+    pass's host input from `in` (pinned on the card, each grown to the
+    largest it has served). Held by one ticket."""
 
     def __init__(self, pinned: bool):
         self.pinned = pinned
-        self.bufs = {"out": torch.empty(0), "noise": torch.empty(0)}
+        self.bufs: dict[str, torch.Tensor] = {}
         self.ticket: Ticket | None = None
 
     def free(self) -> bool:
         t = self.ticket
         return t is None or (t.abandoned and t.done())
 
-    def view(self, name: str, shape: tuple) -> torch.Tensor:
+    def view(self, name: str, shape: tuple, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         n = int(np.prod(shape))
-        if self.bufs[name].numel() < n:
-            self.bufs[name] = torch.empty(n, dtype=torch.float32, pin_memory=self.pinned)
-        return self.bufs[name][:n].view(shape)
+        buf = self.bufs.get(name)
+        if buf is None or buf.numel() < n or buf.dtype != dtype:
+            buf = self.bufs[name] = torch.empty(n, dtype=dtype, pin_memory=self.pinned)
+        return buf[:n].view(shape)
 
 
 @dataclasses.dataclass(eq=False)
@@ -157,7 +188,8 @@ class Ticket:
 @dataclasses.dataclass
 class _Slab:
     """The FlowLM caches of one capacity C, the memory pool of the graphs
-    captured on them, and when a chunk last took them."""
+    captured on them (block and text-prompt graphs), and when a chunk last
+    took them."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -165,7 +197,7 @@ class _Slab:
     offset: torch.Tensor
     wp: torch.Tensor  # the device write pointer, int32 [1]
     pool: tuple | None = None  # made at the first capture
-    pool_bytes: int = 0  # the pool's growth over its captures
+    pool_bytes: int = 0  # the pool's growth over its captures, and the prompts' inputs
     used: int = 0
 
     def state(self, write_pos: int) -> StackState:
@@ -177,42 +209,42 @@ class _Slab:
                                      for t in (self.k, self.v, self.pos, self.offset, self.wp))
 
 
-class _BlockGraph:
-    """One captured block of K frames: its graph, its injected-noise input
-    (or None), its output, and the kernel launches one replay makes."""
+class _PassGraph:
+    """One captured pass over fixed buffers: `warm_up()` once op by op on
+    the capture's stream, then `body()` captured into `holder`'s memory
+    pool (a `_Slab` or a `_Pass`: made at its first capture; its growth,
+    `pool_bytes`, is added to `holder.pool_bytes`). `out` is what the body
+    returned (the graph's output tensors); `launches` the kernel launches
+    one replay makes. `generator`: a generator each replay advances."""
 
-    def __init__(self, lane: "Lane", K: int, injected: bool):
-        model = lane.model
-        dev = model.device
-        self.noise = (torch.zeros((K, lane.B, model.specs.ldim), dtype=torch.float32,
-                                  device=dev) if injected else None)
-        stream = lane.owner.stream
+    def __init__(self, stream, holder, warm_up, body, generator=None):
         graph = torch.cuda.CUDAGraph()
-        if not injected:  # each replay advances the lane's generator
-            graph.register_generator_state(lane.gen)
-        if lane.slab.pool is None:
-            lane.slab.pool = torch.cuda.graph_pool_handle()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        if holder.pool is None:
+            holder.pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            lane.warm_up(K, self.noise)
+            warm_up()
         torch.cuda.current_stream().wait_stream(stream)
         torch.cuda.synchronize()
-        warm_ups["steps"] += K
         self.warmup_s = time.perf_counter() - t0
+        dev = torch.cuda.current_device()
         torch.cuda.empty_cache()  # as the capture does: what the pool adds is its growth
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         before = launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=lane.slab.pool, stream=stream,
+            with torch.cuda.graph(graph, pool=holder.pool, stream=stream,
                                   capture_error_mode="thread_local"):
-                self.out = lane.block(K, self.noise)
+                self.out = body()
         finally:  # a capture launches nothing
             after = launch_counts()
             add_launches({k: before[k] - after[k] for k in after})
         self.capture_s = time.perf_counter() - t0
-        lane.slab.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
+        self.pool_bytes = max(0, torch.cuda.memory_reserved(dev) - reserved)
+        holder.pool_bytes += self.pool_bytes
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.graph = graph
         self.replays = 0
@@ -222,6 +254,20 @@ class _BlockGraph:
         self.graph.replay()
         add_launches(self.launches)
         self.replays += 1
+
+
+class _BlockGraph(_PassGraph):
+    """One captured block of K frames: its graph, its injected-noise input
+    (or None), its output, and the kernel launches one replay makes."""
+
+    def __init__(self, lane: "Lane", K: int, injected: bool):
+        model = lane.model
+        self.noise = (torch.zeros((K, lane.B, model.specs.ldim), dtype=torch.float32,
+                                  device=model.device) if injected else None)
+        super().__init__(lane.owner.stream, lane.slab, lambda: lane.warm_up(K, self.noise),
+                         lambda: lane.block(K, self.noise),
+                         generator=None if injected else lane.gen)  # replays advance it
+        warm_ups["steps"] += K
 
 
 class Lane:
@@ -249,6 +295,7 @@ class Lane:
         self.frames = torch.zeros((1,), dtype=torch.int32, device=dev)  # decoded this chunk
         self.gen = torch.Generator(device=dev)
         self.graphs: dict[tuple, _BlockGraph] = {}
+        self.prompts: dict[tuple, _PassGraph] = {}  # text-prompt graphs by (pad_to, C)
         self.tickets: list[Ticket] = []  # dispatched, not yet fetched or done and abandoned
         # a T=1 step of these rows takes the flash-decode kernel (not the
         # decode stack): its attended length must stay within MAX_ATT
@@ -296,10 +343,10 @@ class Lane:
         slab.used = self.owner.tick()
         return slab
 
-    def load(self, states: list[StackState] | StackState, capacity: int) -> StackState:
+    def load(self, states: list[StackState] | StackState, capacity: int) -> None:
         """The working copy: each row's voice state into the slab of
         `capacity` slots (at least each state's own), in the model's dtype
-        (states.place_states). Returns the slab as a StackState."""
+        (states.place_states), and the write pointers set from the host's."""
         rows = states if isinstance(states, list) else [states]
         C = max([capacity] + [s.k.shape[2] for s in rows])
         with self.owner.lock:
@@ -308,21 +355,68 @@ class Lane:
             if not self.graphed:
                 self.slabs = {C: self.slab}
         self.write_pos = place_states(self.slab.state(0), rows)
-        return self.state()
+        self.slab.wp.fill_(self.write_pos)
 
     def state(self) -> StackState:
         """The lane's FlowLM state (views of its buffers)."""
         return self.slab.state(self.write_pos)
 
-    def begin(self, lm: StackState) -> None:
-        """Start the blocks from `lm` (the prompt pass's state over the
-        slab): its offset and pointers, a fresh Mimi state, BOS on every
-        row, no EOS yet and no frame decoded."""
-        if lm.k is not self.slab.k:
-            raise ValueError("the prompt pass did not run on the lane's caches")
-        self.slab.offset.copy_(lm.offset)
-        self.slab.wp.fill_(lm.write_pos)
-        self.write_pos = lm.write_pos
+    def prompt(self, token_lists: list[list[int]], pad_to: int) -> None:
+        """The text prompt over the slab (the JAX package's `_text_prompt_fn`):
+        the rows' tokens right-padded to `pad_to`, then one prompt pass that
+        appends pad_to slots at the device write pointer and advances each
+        row's offset by its true length, all on the device. Graphed, one
+        replay per call (captured once per (pad_to, C)), its input copied in
+        from a pinned slot; op by op, the same body."""
+        C = self.slab.k.shape[2]
+        if not 0 <= self.write_pos <= C - pad_to:
+            raise ValueError(f"a prompt of {pad_to} slots at write_pos {self.write_pos} "
+                             f"overflows capacity {C}")
+        host = np.zeros((self.B, pad_to + 1), np.int64)  # the tokens, then the true length
+        for i, tokens in enumerate(token_lists):
+            host[i, :len(tokens)] = tokens
+            host[i, pad_to] = len(tokens)
+        s = self.slab
+        if not self.graphed:
+            self._prompt_body(torch.from_numpy(host).to(self.model.device), s.offset, s.wp)
+        else:
+            graph = self._prompt_graph(pad_to)
+            self.tickets.append(self.owner.upload(graph.tokens, host))
+            graph.replay()
+            self.owner.replays += 1
+        self.write_pos += pad_to
+
+    def _prompt_body(self, tokens: torch.Tensor, offset: torch.Tensor,
+                     wp: torch.Tensor) -> None:
+        """The body a text-prompt graph holds: the pass over the slab's caches
+        from `offset` and `wp`, both then advanced in place."""
+        s = self.slab
+        lm = self.model._text_prompt(StackState(s.k, s.v, s.pos, offset, self.write_pos, wp),
+                                     tokens)
+        offset.copy_(lm.offset)
+        wp.copy_(lm.write_ptr)
+
+    def _prompt_graph(self, pad_to: int) -> _PassGraph:
+        """The text-prompt graph of `pad_to` tokens at this lane's capacity,
+        captured if new, after a warm-up that writes only the pad_to slots
+        the replay writes again (its offset and pointer are copies)."""
+        s = self.slab
+        key = (pad_to, s.k.shape[2])
+        graph = self.prompts.get(key)
+        if graph is None:
+            tokens = torch.zeros((self.B, pad_to + 1), dtype=torch.int64, device=self.model.device)
+            graph = _PassGraph(self.owner.stream, s,
+                               lambda: self._prompt_body(tokens, s.offset.clone(), s.wp.clone()),
+                               lambda: self._prompt_body(tokens, s.offset, s.wp))
+            graph.tokens = tokens
+            s.pool_bytes += tokens.numel() * tokens.element_size()
+            with self.owner.lock:
+                self.prompts[key] = graph
+        return graph
+
+    def begin(self) -> None:
+        """Start the blocks after the prompt: a fresh Mimi state, BOS on
+        every row, no EOS yet and no frame decoded."""
         fresh = init_decoder_state(self.model.mimi_specs, self.B, self.model._dtype,
                                    self.model.device)
         for dst, src in zip(tree_leaves(self.mimi), tree_leaves(fresh)):
@@ -480,8 +574,9 @@ class Lane:
         device is done with them; its bytes."""
         self.settle()
         slab = self.slabs.pop(C)
-        for key in [key for key in self.graphs if key[1] == C]:
-            del self.graphs[key]
+        for graphs in (self.graphs, self.prompts):
+            for key in [key for key in graphs if key[1] == C]:
+                del graphs[key]
         if slab is self.slab:
             self.slab = None
         return slab.nbytes
@@ -495,21 +590,62 @@ class Lane:
                 self.owner.make_room(0)
 
 
+@dataclasses.dataclass(eq=False)
+class _Pass:
+    """A pass the model keeps between requests, outside any lane (a voice
+    prompt or the Mimi encoder): its fixed input and state buffers, its
+    graph and the graph's own memory pool, and when a request last used it."""
+
+    bufs: dict
+    pool: tuple | None = None
+    pool_bytes: int = 0
+    graph: _PassGraph | None = None
+    used: int = 0
+    busy: bool = False
+    event: torch.cuda.Event | None = None  # after the last replay's use
+
+    @property
+    def nbytes(self) -> int:
+        return self.pool_bytes + sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(self.bufs))
+
+    def settle(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
 class StepGraphs:
-    """A model's lanes, by batch size, what they may keep (see the module
-    docstring), and the host slots of the blocks in flight."""
+    """A model's lanes, by batch size, its pass graphs (voice prompt and
+    encoder, by key), what they may keep (see the module docstring), and the
+    host slots of the blocks and uploads in flight."""
 
     def __init__(self, model):
         self.model = model
         self.lanes: dict[int, list[Lane]] = {}
+        self.passes: dict[tuple, _Pass] = {}
         self.stream = None  # the side stream every capture and warm-up runs on
-        self.weights: tuple = ()  # the (params, mimi_params) the lanes were made for
-        self.budget: int | None = None  # bytes of slabs kept; None: KEEP_FRACTION of the card
+        self.weights: tuple = ()  # the (params, mimi_params) the graphs were made for
+        self.budget: int | None = None  # bytes kept; None: KEEP_FRACTION of the card
         self.replays = 0  # every replay of this model's graphs
         self.slots: list[_Slot] = []
         self._next_slot = 0
         self.lock = threading.RLock()
         self._tick = 0
+
+    def _graphing(self) -> None:
+        """Before a graphed lane or pass is taken (under the lock): every
+        graph is dropped when the model's weights are not the ones they were
+        captured on; the capture stream and the default budget are made."""
+        m = self.model
+        weights = (m.params, m.mimi_params)
+        if len(self.weights) != 2 or any(a is not b for a, b in zip(weights, self.weights)):
+            self.release()
+            self.weights = weights
+        if self.stream is None and m.device.type == "cuda":
+            self.stream = torch.cuda.Stream(m.device)
+        if self.budget is None and m.device.type == "cuda":
+            self.budget = int(KEEP_FRACTION
+                              * torch.cuda.get_device_properties(m.device).total_memory)
 
     def acquire(self, B: int, rows: slice = slice(None), B_noise: int | None = None) -> Lane:
         """A lane for a stream of B rows (its noise is set per chunk,
@@ -523,15 +659,7 @@ class StepGraphs:
             lane.busy = True
             return lane
         with self.lock:
-            weights = (m.params, m.mimi_params)
-            if len(self.weights) != 2 or any(a is not b for a, b in zip(weights, self.weights)):
-                self.release()
-                self.weights = weights
-            if self.stream is None and m.device.type == "cuda":
-                self.stream = torch.cuda.Stream(m.device)
-            if self.budget is None and m.device.type == "cuda":
-                self.budget = int(KEEP_FRACTION
-                                  * torch.cuda.get_device_properties(m.device).total_memory)
+            self._graphing()
             lanes = self.lanes.setdefault(B, [])
             lane = next((ln for ln in lanes if not ln.busy), None)
             if lane is None:
@@ -539,6 +667,58 @@ class StepGraphs:
                 lanes.append(lane)
             lane.busy = True
             return lane
+
+    def run_pass(self, key: tuple, make, fill, body, take):
+        """One pass outside the lanes (a voice prompt or the Mimi encoder):
+        `make()` gives its fixed buffers (a dict of tensors), `fill(bufs)`
+        copies the call's input into them, `body(bufs)` is the pass (no
+        host read), and `take(out)` copies its result into tensors of the
+        caller's. Graphed: the buffers and the graph of `key` are kept
+        (captured after one op-by-op warm-up of the body, in a pool of their
+        own, within the budget) and every call is a fill, one replay and the
+        take, under the lock (the server's threads share them). Op by op:
+        fresh buffers and the body, each call."""
+        if not self.model._graphed():
+            bufs = make()
+            fill(bufs)
+            return take(body(bufs))
+        with self.lock:
+            self._graphing()
+            entry = self.passes.get(key)
+            if entry is None:
+                entry = _Pass(make())
+                self.make_room(entry.nbytes)
+                entry.graph = _PassGraph(self.stream, entry, lambda: body(entry.bufs),
+                                         lambda: body(entry.bufs))
+                self.passes[key] = entry
+            entry.used = self.tick()
+            entry.busy = True
+            try:
+                fill(entry.bufs)
+                entry.graph.replay()
+                self.replays += 1
+                out = take(entry.graph.out)
+                if self.model.device.type == "cuda":
+                    entry.event = torch.cuda.Event()
+                    entry.event.record()
+            finally:
+                entry.busy = False
+            self.make_room(0)
+            return out
+
+    def upload(self, dst: torch.Tensor, host: np.ndarray) -> Ticket:
+        """Copy `host` into the device buffer `dst` through a pinned slot of
+        the ring (non-blocking, on the current stream); returns the copy's
+        ticket, abandoned: its slot is free once the copy is done."""
+        ticket = Ticket(0, abandoned=True)
+        slot = ticket.slot = self.take_slot(ticket)
+        src = slot.view("in", tuple(host.shape), dst.dtype)
+        src.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+        dst.copy_(src, non_blocking=True)
+        if self.model.device.type == "cuda":
+            ticket.event = torch.cuda.Event()
+            ticket.event.record()
+        return ticket
 
     def take_slot(self, ticket: Ticket) -> _Slot:
         """The next free slot of the ring (a new one when every slot is
@@ -559,45 +739,74 @@ class StepGraphs:
         return self._tick
 
     def held(self) -> int:
-        """Bytes the lanes hold: caches, graph pools and their own buffers."""
-        return sum(lane.nbytes for lanes in self.lanes.values() for lane in lanes)
+        """Bytes kept: the lanes' caches, graph pools and own buffers, and
+        the passes' buffers and pools."""
+        return (sum(lane.nbytes for lanes in self.lanes.values() for lane in lanes)
+                + sum(p.nbytes for p in self.passes.values()))
+
+    def _drop_pass(self, key: tuple) -> int:
+        entry = self.passes.pop(key)
+        entry.settle()
+        return entry.nbytes
 
     def make_room(self, nbytes: int, budget: int | None = None) -> None:
-        """Drop idle slabs, least recently used first, until what is held
-        and `nbytes` more fit `budget` (default: self.budget); then the idle
-        lanes left with no slab. A slab is idle unless it is the current
-        slab of a lane a stream holds."""
+        """Drop idle slabs and passes, least recently used first, until what
+        is held and `nbytes` more fit `budget` (default: self.budget); then
+        the idle lanes left with no slab. A slab is idle unless it is the
+        current slab of a lane a stream holds; a pass unless it is running."""
         budget = self.budget if budget is None else budget
         if budget is None:
             return
         with self.lock:
             held = self.held()
-            idle = sorted(((s.used, lane, C) for lanes in self.lanes.values() for lane in lanes
-                           for C, s in lane.slabs.items() if not (lane.busy and s is lane.slab)),
-                          key=lambda t: t[0])
-            for _, lane, C in idle:
+            idle = ([(s.used, lambda lane=lane, C=C: lane.drop(C))
+                     for lanes in self.lanes.values() for lane in lanes
+                     for C, s in lane.slabs.items() if not (lane.busy and s is lane.slab)]
+                    + [(p.used, lambda key=key: self._drop_pass(key))
+                       for key, p in self.passes.items() if not p.busy])
+            for _, drop in sorted(idle, key=lambda t: t[0]):
                 if held + nbytes <= budget:
                     break
-                held -= lane.drop(C)
+                held -= drop()
             for B in list(self.lanes):
                 self.lanes[B] = [ln for ln in self.lanes[B] if ln.busy or ln.slabs]
                 if not self.lanes[B]:
                     del self.lanes[B]
 
     def release(self) -> None:
-        """Drop every lane: the graphs, their pools and the buffers."""
+        """Drop every lane and pass: the graphs, their pools and the buffers."""
         with self.lock:
             for lanes in self.lanes.values():
                 for lane in lanes:
                     lane.settle()
             self.lanes.clear()
+            for key in list(self.passes):
+                self._drop_pass(key)
 
     def stats(self) -> list[dict]:
-        """Per kept graph: B, K, C, the noise kind, its warm-up's and its
-        capture's seconds, replays and the kernel launches of one replay."""
+        """Per kept block graph: B, K, C, the noise kind, its warm-up's and
+        its capture's seconds, replays and the kernel launches of one replay."""
         with self.lock:
             return [dict(B=lane.B, K=key[0], C=key[1], noise=key[4] if key[4] == "injected"
                          else "device", warmup_s=g.warmup_s, capture_s=g.capture_s,
                          replays=g.replays, launches=dict(g.launches))
                     for lanes in self.lanes.values() for lane in lanes
                     for key, g in lane.graphs.items()]
+
+    def pass_stats(self) -> list[dict]:
+        """Per kept prompt or encoder graph: its kind ("text", a lane's
+        text prompt by pad_to and C; "voice", a voice prompt by B, pad_to and
+        C; "encode", the Mimi encoder by B and frame bucket), its key, its
+        warm-up's and capture's seconds, replays, the kernel launches of one
+        replay, and the bytes it keeps (a text prompt's: its pool's growth in
+        its slab's pool and its input buffer)."""
+        with self.lock:
+            out = [dict(kind="text", key=(lane.B,) + key, warmup_s=g.warmup_s,
+                        capture_s=g.capture_s, replays=g.replays, launches=dict(g.launches),
+                        nbytes=g.pool_bytes + g.tokens.numel() * g.tokens.element_size())
+                   for lanes in self.lanes.values() for lane in lanes
+                   for key, g in lane.prompts.items()]
+            return out + [dict(kind=key[0], key=key[1:], warmup_s=p.graph.warmup_s,
+                               capture_s=p.graph.capture_s, replays=p.graph.replays,
+                               launches=dict(p.graph.launches), nbytes=p.nbytes)
+                          for key, p in self.passes.items()]

@@ -7,9 +7,9 @@ Port of pocket_tts_tpu/pipeline/tts.py (`load_model`, the voice states,
 JAX package's key names, so one file loads in both packages), falling back
 to the checkpoint without the voice-cloning weights. A voice state is the
 FlowLM KV cache after one prompt pass over the speaker conditioning: from a
-wav (read, truncated, downmixed, resampled to 24 kHz), through the Mimi
-encoder (plain PyTorch, models/mimi.encode_to_latent) and the speaker
-projection, or imported from a `.safetensors` export.
+wav (read, truncated, downmixed, resampled to 24 kHz, zero-padded to a frame
+bucket), through the Mimi encoder (plain PyTorch, models/mimi.encode_to_latent)
+and the speaker projection, or imported from a `.safetensors` export.
 
 Per sentence chunk: the text prompt fills the KV cache (a T>1 pass), then
 frames are decoded in blocks of K (the `_block_size` ramp: single frames
@@ -19,8 +19,11 @@ block's latents then go through the Mimi decoder in one call (the codec
 kernel on the card), and the block's EOS flags and audio come to the host
 with one copy. On the card an unsharded model runs each block as one CUDA
 graph replay (pipeline/step_graphs.py: the counterpart of the JAX package's
-jitted `_fused_step_fn` / `_multi_step_fn`); the CPU and a mesh run the same
-block (`_decode_block`) op by op, in the same buffers (a `Lane`).
+jitted `_fused_step_fn` / `_multi_step_fn`), and so each pass ahead of the
+blocks: the text prompt (`_text_prompt`, its `_text_prompt_fn`), the voice
+prompt (`_voice_prompt`, its `_audio_prompt_fn`) and the encoder (`_encode`,
+its `_encode_fn`), keyed by their buckets; the CPU and a mesh run the same
+bodies op by op, in the same buffers.
 Emission follows the JAX package exactly (`_ChunkEmit`): the frames after
 the first EOS, the frames-after-EOS allowance and the break step.
 
@@ -173,6 +176,9 @@ VOICE_CLONING_UNSUPPORTED = (
 # KV-capacity and prompt-length buckets, as in the JAX package
 CAPACITY_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
 PROMPT_BUCKETS = (8, 16, 32, 64, 128, 192, 256, 384, 512)
+# the Mimi encoder's wav lengths, in frames of 1920 samples (beyond the
+# last, multiples of 256), as in the JAX package
+ENCODER_FRAME_BUCKETS = (25, 50, 75, 100, 150, 200, 250, 300, 375, 512)
 FIRST_BLOCK_FRAMES = 2  # single-frame blocks up front (first-chunk latency)
 SCAN_BLOCK_FRAMES = 8  # frames per block while the stream ramps up
 MAX_BLOCK_FRAMES = 32  # steady-state frames per block (2.56 s of audio)
@@ -549,13 +555,37 @@ class TTSModel:
     def voice_conditioning(self, audio: np.ndarray) -> torch.Tensor:
         """The Mimi encoder's latents of audio [1, T] or [B, 1, T] (in the
         Mimi weights' dtype), projected into backbone space in f32 by the
-        speaker projection: [B, frames, D]. Mimi and the projection are
-        whole on every rank of a mesh, so this runs no collective."""
+        speaker projection: [B, ceil(T / 1920), D]. As in the JAX package
+        (`_encode_fn`) the wav is zero-padded to a frame bucket
+        (ENCODER_FRAME_BUCKETS) and the latents are cut back to the voice's
+        own frames; every stage is causal, so the kept frames do not depend
+        on the padding. On the card, unsharded, one graph replay per
+        (B, frame bucket) (StepGraphs.run_pass); op by op elsewhere. Mimi and
+        the projection are whole on every rank of a mesh, so this runs no
+        collective."""
         audio = np.asarray(audio, dtype=np.float32)
         if audio.ndim == 2:
             audio = audio[None]
-        x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
-        latent = encode_to_latent(self.mimi_specs, self.mimi_params, x)  # [B, C, frames]
+        B, _, T = audio.shape
+        fs = self.mimi_specs.frame_size
+        n_frames = math.ceil(T / fs)
+        padded = np.zeros((B, 1, _bucket(n_frames, ENCODER_FRAME_BUCKETS) * fs), np.float32)
+        padded[:, :, :T] = audio
+
+        def make():
+            return {"wav": torch.zeros(padded.shape, dtype=torch.float32, device=self.device)}
+
+        return self.step_graphs.run_pass(
+            ("encode", B, padded.shape[-1] // fs), make,
+            lambda bufs: self.step_graphs.upload(bufs["wav"], padded),
+            lambda bufs: self._encode(bufs["wav"]),
+            lambda cond: cond[:, :n_frames].clone())
+
+    def _encode(self, wav: torch.Tensor) -> torch.Tensor:
+        """The body of the encoder pass: wav [B, 1, frames * 1920] through
+        the Mimi encoder (SEANet, the encoder transformer, the downsample)
+        and the speaker projection: [B, frames, D] f32."""
+        latent = encode_to_latent(self.mimi_specs, self.mimi_params, wav)  # [B, C, frames]
         return torch.einsum("bct,dc->btd", latent.float(),
                             self.params["speaker_proj_weight"].float())
 
@@ -585,19 +615,51 @@ class TTSModel:
     def state_for_conditioning(self, cond: torch.Tensor) -> StackState:
         """Voice state from conditioning already in backbone space [B, T, D]
         (the speaker projection of an encoded voice): one prompt pass into a
-        fresh cache. As in the JAX package the conditioning stays f32 through
-        the prompt pass (the cache takes the model dtype)."""
+        blank cache (the JAX package's `_audio_prompt_fn`). As in the JAX
+        package the conditioning stays f32 through the prompt pass (the
+        cache takes the model dtype), right-padded with zeros to its
+        PROMPT_BUCKETS bucket after the BOS row where the config inserts it.
+        On the card, unsharded, one graph replay per (B, pad_to, C) over
+        fixed buffers (StepGraphs.run_pass); op by op elsewhere. The state
+        returned is copied into tensors of its own: no later pass writes it."""
         cond = cond.to(self.device, torch.float32)
-        B, prompt_len, D = cond.shape
-        if self.specs.insert_bos_before_voice:
-            bos = self.params["bos_before_voice"].expand(B, 1, D)
-            cond = torch.cat([bos.to(cond.dtype), cond], dim=1)
-            prompt_len += 1
+        B, n, D = cond.shape
+        bos = int(self.specs.insert_bos_before_voice)
+        prompt_len = n + bos
         pad_to = _bucket(prompt_len, PROMPT_BUCKETS)
-        padded = torch.zeros((B, pad_to, D), dtype=cond.dtype, device=self.device)
-        padded[:, :prompt_len] = cond
-        state = self.init_blank_state(B, _bucket(pad_to, CAPACITY_BUCKETS))
-        return prompt_step(self.specs, self.params, state, padded, true_len=prompt_len)
+        C = _bucket(pad_to, CAPACITY_BUCKETS)
+
+        def make():
+            blank = self.init_blank_state(B, C)
+            blank.write_ptr = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            return {"cond": torch.zeros((B, pad_to, D), dtype=torch.float32, device=self.device),
+                    "true_len": torch.zeros((B,), dtype=torch.int32, device=self.device),
+                    "state": blank}
+
+        def fill(bufs):
+            if bos:
+                bufs["cond"][:, :1] = self.params["bos_before_voice"].float()
+            bufs["cond"][:, bos:prompt_len] = cond
+            bufs["cond"][:, prompt_len:] = 0
+            bufs["true_len"].fill_(prompt_len)
+
+        def take(lm):
+            return StackState(lm.k.clone(), lm.v.clone(), lm.pos.clone(), lm.offset.clone(),
+                              lm.write_pos)
+
+        return self.step_graphs.run_pass(("voice", B, pad_to, C), make, fill,
+                                         self._voice_prompt, take)
+
+    def _voice_prompt(self, bufs: dict) -> StackState:
+        """The body of the voice-prompt pass: the blank cache `bufs["state"]`
+        made blank again (positions -1, offset and write pointer 0), then the
+        prompt pass over `bufs["cond"]` with `bufs["true_len"]`."""
+        blank = bufs["state"]
+        blank.pos.fill_(-1)
+        blank.offset.zero_()
+        blank.write_ptr.zero_()
+        return prompt_step(self.specs, self.params, blank, bufs["cond"],
+                           true_len=bufs["true_len"])
 
     def import_state(self, source: str | Path) -> StackState:
         """A state file (all heads), cut to this rank's heads under tensor
@@ -832,8 +894,9 @@ class TTSModel:
                               [tp.group] if tp is not None and tp.size > 1 else [])
         lane.start(seed, noise_source)
         offset = model_state.offset
-        lm_state = lane.load(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
-        lane.begin(self._prompt_text_tokens(lm_state, [tokens]))
+        lane.load(model_state, _bucket(slots_used + pad_to, CAPACITY_BUCKETS))
+        lane.prompt([tokens], pad_to)
+        lane.begin()
         run = _ChunkEmit(max_gen_len, spec["frames_after_eos"])
         start_slots = slots_used + pad_to
         frames_started = 0
@@ -858,19 +921,17 @@ class TTSModel:
             model_state.write_ptr = None
         return run
 
-    def _prompt_text_tokens(self, lm_state: StackState, token_lists: list[list[int]],
-                            pad_to: int | None = None) -> StackState:
-        """One prompt pass over the rows' tokens, right-padded to `pad_to`
-        (default: the rows' PROMPT_BUCKETS bucket); each row's offset
-        advances by its true length."""
-        counts = [len(t) for t in token_lists]
-        tok = torch.zeros((len(token_lists), pad_to or _bucket(max(counts), PROMPT_BUCKETS)),
-                          dtype=torch.long)
-        for i, tokens in enumerate(token_lists):
-            tok[i, : len(tokens)] = torch.as_tensor(tokens, dtype=torch.long)
-        emb = embed_text_tokens(self.params, tok.to(self.device))
-        true_len = torch.tensor(counts, dtype=torch.int32, device=self.device)
-        return prompt_step(self.specs, self.params, lm_state, emb, true_len=true_len)
+    def _text_prompt(self, state: StackState, inputs: torch.Tensor) -> StackState:
+        """The text prompt pass (the JAX package's `_text_prompt_fn`) over
+        `state`: inputs int64 [B, pad_to + 1], each row's token ids
+        right-padded to pad_to, then its true length; the LUT embedding and
+        one prompt pass, whose append writes pad_to slots at the device write
+        pointer. Each row's offset advances by its true length. No host read
+        (the lane's text-prompt graph holds it)."""
+        pad_to = inputs.shape[1] - 1
+        emb = embed_text_tokens(self.params, inputs[:, :pad_to])
+        return prompt_step(self.specs, self.params, state, emb,
+                           true_len=inputs[:, pad_to].to(torch.int32))
 
     @typechecked(
         model_state=StackState, text_to_generate=str, max_tokens=int,
@@ -960,13 +1021,13 @@ class TTSModel:
 
         try:
             if batched:  # this rank's rows, as views: the working copy copies them
-                lm_state = loop.load(StackState(model_states.k[:, rows], model_states.v[:, rows],
-                                                model_states.pos[rows],
-                                                model_states.offset[rows],
-                                                model_states.write_pos), capacity)
+                loop.load(StackState(model_states.k[:, rows], model_states.v[:, rows],
+                                     model_states.pos[rows], model_states.offset[rows],
+                                     model_states.write_pos), capacity)
             else:
-                lm_state = loop.load(list(model_states[rows]), capacity)
-            loop.begin(self._prompt_text_tokens(lm_state, token_lists, pad_to))
+                loop.load(list(model_states[rows]), capacity)
+            loop.prompt(token_lists, pad_to)
+            loop.begin()
             start_slots = slots_used + pad_to
             step = 0
             while step < max_gen_len and not done:

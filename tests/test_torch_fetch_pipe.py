@@ -15,7 +15,7 @@ import torch
 from pocket_tts_tpu_torch.pipeline import step_graphs
 from pocket_tts_tpu_torch.pipeline import tts as ptts
 from test_torch_pipeline import MULTI_MAX_TOKENS, MULTI_TEXT, PunctTokenizer
-from test_torch_step_graph import DirectGraph
+from test_torch_step_graph import DirectGraph, DirectPass
 from torch_port import write_small_config, write_small_port_checkpoint
 
 TOKENS = [3, 17, 9, 21, 5, 23, 8]
@@ -48,6 +48,7 @@ def fresh(model):
 def route(model, monkeypatch, graphed: bool):
     """The graphed path (each graph a direct call of its body) or op by op."""
     monkeypatch.setattr(step_graphs, "_BlockGraph", DirectGraph)
+    monkeypatch.setattr(step_graphs, "_PassGraph", DirectPass)
     monkeypatch.setattr(model, "_graphed", lambda: graphed)
 
 

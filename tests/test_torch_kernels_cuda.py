@@ -708,3 +708,73 @@ def test_graph_replays_advance_the_generator_across_chunks(card):
     first = runs[True][0].reshape(-1, 1920)
     assert not np.array_equal(first[2:10], first[10:18])  # two 8-frame blocks
     assert not np.array_equal(runs[True][0], runs[True][1])
+
+
+def _slab(lane):
+    s = lane.slab
+    return [t.clone() for t in (s.k, s.v, s.pos, s.offset, s.wp)] + [lane.write_pos]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,quant,pads", [(1, False, (8, 16, 32)), (1, True, (8,)),
+                                         (3, False, (16,))],
+                         ids=["b1-bf16", "b1-int8", "b3-bf16"])
+def test_graphed_text_prompt_equals_op_by_op(card, B, quant, pads):
+    """A lane's text prompt as a graph replay (captured once per (pad_to, C),
+    replayed for a second chunk) against the same prompt op by op on the
+    same slab: k, v, pos, offset and both write pointers bit-equal; at B=1
+    and pad_to <= 32 the capture recorded the gemv kernel's launches."""
+    model = serving_model(card, quant=quant)
+    states = [voice(model, card) for _ in range(B)]
+    for pad_to in pads:
+        token_lists = [[3 + b, 17, 9, 41, 5, 23, 8, 11, 2, 14, 6, 19][: pad_to - 3 - b]
+                       for b in range(B)]
+        out = {}
+        for graphed in (True, False):
+            model._graphed = lambda graphed=graphed: graphed
+            lane = model.step_graphs.acquire(B)
+            try:
+                snaps = []
+                for _ in range(2):  # a chunk, then another on the same lane (a replay)
+                    lane.load(states, 256)
+                    lane.prompt(token_lists, pad_to)
+                    snaps.append(_slab(lane))
+                out[graphed] = snaps, {k: dict(g.launches) for k, g in lane.prompts.items()}
+            finally:
+                lane.settle()
+                lane.close()
+        (got, launches), (want, _) = out[True], out[False]
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                assert (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        assert launches[(pad_to, 256)].get("gemv", 0) > 0 or B * pad_to > 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", [1.0, 2.3, 10.0])
+def test_graphed_voice_clone_equals_op_by_op(card, seconds):
+    """state_for_audio_array (the encoder pass over the wav padded to its
+    frame bucket, then the voice prompt over a blank cache) as graph
+    replays against op by op: the conditioning and the state bit-equal; a
+    second voice through the same graphs leaves the first state as it was."""
+    import numpy as np
+
+    model = serving_model(card)
+    rng = np.random.default_rng(int(seconds * 10))
+    audio = (rng.standard_normal((1, int(seconds * 24000))) * 0.1).astype(np.float32)
+    other = (rng.standard_normal((1, int(seconds * 24000))) * 0.1).astype(np.float32)
+    out = {}
+    for graphed in (True, False):
+        model._graphed = lambda graphed=graphed: graphed
+        cond = model.voice_conditioning(audio)
+        state = model.state_for_audio_array(audio)
+        out[graphed] = cond, state, state.clone()
+        model.state_for_audio_array(other)  # one more replay of each graph
+    (c_g, s_g, held), (c_e, s_e, _) = out[True], out[False]
+    assert c_g.shape == c_e.shape and torch.equal(c_g, c_e)
+    for name in ("k", "v", "pos", "offset"):
+        assert torch.equal(getattr(s_g, name), getattr(s_e, name)), name
+        assert torch.equal(getattr(s_g, name), getattr(held, name)), name
+    assert s_g.write_pos == s_e.write_pos
+    kinds = sorted(st["kind"] for st in model.step_graphs.pass_stats())
+    assert kinds == ["encode", "voice"]

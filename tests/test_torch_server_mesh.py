@@ -299,6 +299,21 @@ def test_slow_client_keeps_the_followers(dp):
     assert code == 200 and json.loads(body)["mesh"] == "healthy", body
 
 
+def test_slow_follower_is_waited_for(dp):
+    """The follower reaches the attempt's agreement PAUSE_S > HEALTH_S after
+    rank 0 (it sleeps after its stream, its heartbeat on: a data rank behind
+    rank 0, as on a loaded host): rank 0 waits for its arrival instead of
+    timing the agreement out, the body is whole, and the job stays healthy
+    and serves the next request."""
+    t0 = time.monotonic()
+    code, body = call(dp.url, "/tts", b"text=lag+behind+rank+zero.", FORM)
+    assert code == 200 and pcm(body).size > 0
+    assert time.monotonic() - t0 >= PAUSE_S
+    code, body = call(dp.url, "/health")
+    assert code == 200 and json.loads(body)["mesh"] == "healthy", body
+    assert call(dp.url, "/tts", SHORT, FORM)[0] == 200
+
+
 def test_stop_ends_both_data_ranks(dp):
     """SIGINT to rank 0: serve sends `stop`, and both ranks exit with rc 0."""
     dp.stop()

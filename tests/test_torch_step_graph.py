@@ -260,6 +260,22 @@ class DirectGraph:
         self.out = self.lane.block(self.K, self.noise)
 
 
+class DirectPass:
+    """A prompt or encoder graph's stand-in on the CPU (in place of
+    step_graphs._PassGraph): the warm-up runs, then each replay calls the
+    body the graph would hold, into `out`."""
+
+    def __init__(self, stream, holder, warm_up, body, generator=None):
+        self.body = body
+        self.warmup_s, self.capture_s, self.launches, self.replays = 0.0, 0.0, {}, 0
+        self.pool_bytes = 0
+        warm_up()
+
+    def replay(self):
+        self.replays += 1
+        self.out = self.body()
+
+
 def test_lane_bookkeeping_matches_the_eager_loop(f32, monkeypatch):
     """The graphed loop's buffers (pipeline/step_graphs.Lane: the working
     copy into the lane, the prompt on its caches, growth into the next
@@ -273,6 +289,7 @@ def test_lane_bookkeeping_matches_the_eager_loop(f32, monkeypatch):
 
     _, pm = f32
     monkeypatch.setattr(step_graphs, "_BlockGraph", DirectGraph)
+    monkeypatch.setattr(step_graphs, "_PassGraph", DirectPass)
     monkeypatch.setattr(pm, "gen", ptts.GenerationParams(eos_threshold=1e9))  # EOS off
     D = pm.specs.transformer.d_model
     g = torch.Generator().manual_seed(9)
@@ -328,13 +345,14 @@ def test_lanes_keep_within_the_budget(f32, monkeypatch):
 
     _, pm = f32
     monkeypatch.setattr(step_graphs, "_BlockGraph", DirectGraph)
+    monkeypatch.setattr(step_graphs, "_PassGraph", DirectPass)
     monkeypatch.setattr(pm, "gen", ptts.GenerationParams(eos_threshold=1e9))  # EOS off
-    monkeypatch.setattr(pm, "_graphed", lambda: True)
-    sg = pm.step_graphs
-    sg.release()
     D = pm.specs.transformer.d_model
     voice = pm.state_for_conditioning(torch.randn((1, 180, D),
                                                   generator=torch.Generator().manual_seed(9)) * 0.3)
+    monkeypatch.setattr(pm, "_graphed", lambda: True)
+    sg = pm.step_graphs
+    sg.release()
     tokens = [3, 17, 9, 21, 5, 23, 8]
 
     def chunk(frames, seed):

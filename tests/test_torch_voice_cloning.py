@@ -137,8 +137,8 @@ def test_encode_to_latent_matches_jax(models):
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_state_for_audio_array_matches_jax(models, batch):
-    """[1, T] at B=1, [B, 1, T] at B=2 (the JAX side pads to a frame bucket
-    and slices back; the port encodes at the true length)."""
+    """[1, T] at B=1, [B, 1, T] at B=2 (both sides pad the wav to a frame
+    bucket and slice the latents back)."""
     jm, pm, _, _ = models
     audio = AUDIO[0] if batch == 1 else np.concatenate([AUDIO, AUDIO[..., ::-1] * 0.5])
     assert_states_close(pm.state_for_audio_array(audio), jm.state_for_audio_array(audio))

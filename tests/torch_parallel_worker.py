@@ -291,8 +291,10 @@ def server_mesh(inp: dict, meta: dict) -> dict:
     "retry" in it fails before its first step (a transient fault on every
     rank); once a text with "deaf" in it is done, rank 1's main thread
     stops receiving (it sleeps before its next receive; its heartbeat goes
-    on). Ends when `serve` returns: rank 0's on SIGINT, a follower's on
-    `stop`."""
+    on); after its stream of a text with "lag" in it, rank 1 sleeps for
+    meta["pause_s"] before the attempt's agreement (a follower behind rank
+    0, its heartbeat on). Ends when `serve` returns: rank 0's on SIGINT, a
+    follower's on `stop`."""
     import signal
 
     from pocket_tts_tpu_torch.api import server
@@ -329,6 +331,8 @@ def server_mesh(inp: dict, meta: dict) -> dict:
             yield chunk
         if rank == 1 and "deaf" in text:
             deaf["armed"] = True
+        if rank == 1 and "lag" in text:
+            time.sleep(meta["pause_s"])
 
     def write(self, data):
         if pause["armed"] and data:
