@@ -59,7 +59,7 @@ Phases, each of which makes the script exit non-zero when it fails:
      the counters its route predicts (a CUDA graph replay adds the launches
      its capture recorded) and that the callers' voice states are
      bit-unchanged, and prints audio-s/s beside the card's name and power
-     limit. Every unsharded serving path runs each block, each text
+     limit. Every serving path (sharded too) runs each block, each text
      prompt, each voice prompt and each Mimi encoder pass as one CUDA
      graph replay (pipeline/step_graphs.py). The graph phase (`graph_vs_eager`)
      runs one request per path (b1 bf16, b32 bf16, b128 bf16, b1 int8 and
@@ -109,13 +109,21 @@ Phases, each of which makes the script exit non-zero when it fails:
      each request's voice, first-chunk and total ms and audio-s/s printed;
   5d. sharded serving over 5b's checkpoint, bf16: `python -m
      pocket_tts_tpu_torch.parallel.launch --processes 1` (NCCL, world 1; the
-     report must say mesh_healthy), then in this process a 1 x 1 mesh with
-     tensor_parallel=True on a b1 request (16 frames, a cloned voice) and a
-     B=4 batch, each held to the unsharded model on the same card at the
-     bf16 bar (the b1 route changes from the decode stack to the layer loop:
-     decode_stack 0 launches, flash_decode at B=1, gemv); with two cards or
+     report must say mesh_healthy and count graph replays), then in this
+     process a 1 x 1 mesh with tensor_parallel=True on a b1 request (16
+     frames, a cloned voice) and a B=4 batch, each held to the unsharded
+     model on the same card at the bf16 bar (the b1 route changes from the
+     decode stack to the layer loop: decode_stack 0 launches, flash_decode
+     at B=1, gemv); every pass of the mesh is a graph replay, and
+     `mesh_graph_vs_eager` runs a b1 stream and the B=4 batch on a seed
+     graphed and op by op in turns (wall, audio-s/s, first chunk, replays,
+     then device time and busy share profiled; the audio bit-equal or
+     within the bf16 bar, which is printed); `graph_nodes` holds one replay
+     of the mesh's b1 K=8 block graph to its recorded launches (decode
+     stack 0, flash_decode L and gemv >= 4L a step); with two cards or
      more, 2 DP processes and TP=2 (`--tp-worker` ranks) against the
-     1-process audio;
+     1-process audio, TP=2 graphed against op by op, in turns, and its
+     NCCL kernels' device time a step (`collective_ms`);
   5e. the HTTP server on a sharded model over 5b's checkpoint, bf16: an
      unsharded server, then this process as rank 0 of an NCCL group of one
      with the server's gloo control plane beside it and the model on a 1 x 1
@@ -123,13 +131,16 @@ Phases, each of which makes the script exit non-zero when it fails:
      voice_wav upload) and /health with the mesh's keys; the mesh server's
      audio held to the unsharded server's at the bf16 bar, its route checked
      (decode stack 0, flash_decode L a step, gemv >= 4L a step); first chunk
-     ms, audio-s/s, per-chip audio-s/s and /health ms printed. With two cards
-     or more, 2 ranks at TP=2 (`--server-rank` processes, rank 1 a follower)
-     held to the 1 x 1 audio, then the follower killed inside a generation
-     (rank 0 waiting in an NCCL all-reduce): /health 503 naming the lost
-     heartbeat within HEALTH_TIMEOUT_S + 5 s, the request's stream cut (the
-     mesh's NCCL communicators aborted) within HEALTH_TIMEOUT_S + 15 s, POST
-     /tts 503 at once, rank 0 still answering and exiting with rc 0;
+     ms, audio-s/s, per-chip audio-s/s and /health ms printed; then the two
+     requests graphed and op by op in turns (`mesh_graph_vs_eager`). With
+     two cards or more, 2 ranks at TP=2 (`--server-rank` processes, rank 1
+     a follower, every pass graphed) held to the 1 x 1 audio, then the
+     follower killed inside a graphed generation (rank 0 waiting on a
+     replay's NCCL all-reduce; its graphs abandoned after): /health 503
+     naming the lost heartbeat within HEALTH_TIMEOUT_S + 5 s, the request's
+     stream cut (the mesh's NCCL communicators aborted) within
+     HEALTH_TIMEOUT_S + 15 s, POST /tts 503 at once, no lane or pass kept,
+     rank 0 still answering and exiting with rc 0;
   5f. the quantization sweep (pocket_tts_tpu_torch.tools.evaluate_quantization
      --random-init --voices 1 --skip-wer) on english.yaml in f32: five rows
      printed and read back;
@@ -1330,54 +1341,62 @@ def stream_request(model, voice, text: str, seed: int, **kw):
     return np.concatenate(chunks) if chunks else np.zeros((0,), np.float32), first_ms
 
 
-def pipelined_vs_unpipelined(model, label: str, request, keep=None) -> dict:
-    """One request with the fetch pipeline's PIPELINE_DEPTH patched to 1
-    (each block fetched before the next is dispatched) and at its default
-    (the next block decodes while the host waits on and emits the last),
-    as graph_vs_eager patches `_graphed`, on one seed. `request()` returns
-    (audio, first-chunk ms or None). A first run captures every key; then
-    the request is timed at each depth in turns (unpipelined, pipelined,
-    pipelined, unpipelined; a garbage collection before each: wall, replays,
-    first chunk; audio-s/s over the mean wall) and run once more at each
-    under the profiler (device time and busy share of the profiled window,
-    a lower bound). The audio must be bit-equal in every run. `keep(mode)`,
-    if given, is called after each timed run (the caller keeps what it
-    compares)."""
+def in_turns(model, kind: str, label: str, request, modes: dict, results: dict,
+             keep=None, bar: bool = False) -> dict:
+    """`request()` in each of two modes (`modes`: name -> a context manager
+    that sets it; the first the baseline, the second the default the
+    serving paths run in), on one seed: a first run in the default (every
+    key captured), then the request timed in turns (first, second, second,
+    first; a garbage collection before each: wall, replays, first chunk;
+    audio-s/s over the mean wall) and run once more in each mode under the
+    profiler (device time and busy share of the profiled window, a lower
+    bound). `request()` returns (audio, first-chunk ms or None). Every run's
+    audio must equal the first run's bit for bit; with `bar`, a run of the
+    baseline may instead be within the bf16 bar of it (REL_TOL of max
+    |first|), and which held is printed. `keep(mode)`, if given, is called
+    after each timed run (the caller keeps what it compares). The numbers
+    go into `results[label]`."""
     import numpy as np
     import torch
 
-    from pocket_tts_tpu_torch.pipeline import tts as ptts
-
-    depths = {"unpipelined": 1, "pipelined": ptts.PIPELINE_DEPTH}
-    default = ptts.PIPELINE_DEPTH
+    base, default = modes
     ref, _ = request()
     if ref.size == 0 or not np.isfinite(ref).all():
-        raise AssertionError(f"pipe {label}: bad audio ({ref.size} samples)")
-    res = {m: dict(walls=[], first_chunk_ms=[], replays=[]) for m in depths}
-    try:
-        for mode in ("unpipelined", "pipelined", "pipelined", "unpipelined"):
-            ptts.PIPELINE_DEPTH = depths[mode]
-            gc.collect()
+        raise AssertionError(f"{kind} {label}: bad audio ({ref.size} samples)")
+    res = {m: dict(walls=[], first_chunk_ms=[], replays=[]) for m in (default, base)}
+    outs = []
+    for mode in (base, default, default, base):
+        gc.collect()
+        with modes[mode]():
             n0 = model.step_graphs.replays
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             audio, first_ms = request()
             torch.cuda.synchronize()
-            r = res[mode]
-            r["walls"].append(time.perf_counter() - t0)
-            r["replays"].append(model.step_graphs.replays - n0)
-            r["first_chunk_ms"].append(first_ms)
-            if not (audio.shape == ref.shape and np.array_equal(audio, ref)):
-                raise AssertionError(f"pipe {label}: the {mode} audio differs from the first "
-                                     f"run's ({audio.shape} vs {ref.shape} samples)")
-            if keep is not None:
-                keep(mode)
-        for mode, r in res.items():
-            ptts.PIPELINE_DEPTH = depths[mode]
-            gc.collect()
+            wall = time.perf_counter() - t0
+        r = res[mode]
+        r["walls"].append(wall)
+        r["replays"].append(model.step_graphs.replays - n0)
+        r["first_chunk_ms"].append(first_ms)
+        if audio.shape != ref.shape:
+            raise AssertionError(f"{kind} {label}: the {mode} audio has {audio.shape} samples, "
+                                 f"the first run's {ref.shape}")
+        if not (np.array_equal(audio, ref) or bar and mode == base):
+            raise AssertionError(f"{kind} {label}: the {mode} audio differs from the first run's")
+        outs.append(audio)
+        if keep is not None:
+            keep(mode)
+    if not np.array_equal(outs[0], outs[3]):
+        raise AssertionError(f"{kind} {label}: the two {base} runs differ")
+    for mode, r in res.items():
+        gc.collect()
+        with modes[mode]():
             _, r["device_ms"], r["profiled_wall_ms"] = device_ms(request, wall=True)
-    finally:
-        ptts.PIPELINE_DEPTH = default
+    err, rel = rel_err(torch.from_numpy(ref), torch.from_numpy(outs[0]))
+    bit_equal = bool(np.array_equal(ref, outs[0]))
+    tol = REL_TOL[str(model._dtype).replace("torch.", "")]
+    if not rel <= tol:
+        raise AssertionError(f"{kind} {label}: {default} vs {base} rel {rel:.3g} > {tol}")
     secs = ref.size / model.sample_rate
     for r in res.values():
         r.update(audio_s=secs, audio_s_per_s=secs / (sum(r["walls"]) / 2),
@@ -1390,12 +1409,34 @@ def pipelined_vs_unpipelined(model, label: str, request, keep=None) -> dict:
                 f"({r['audio_s_per_s']:.2f} audio-s/s, replays {r['replays']}, device "
                 f"{r['device_ms']:.2f} ms, {100 * r['busy']:.1f}% busy{first})")
 
-    print(f"pipelined vs unpipelined {label}: {secs:.2f} s of audio; pipelined "
-          f"{line(res['pipelined'])} vs unpipelined {line(res['unpipelined'])}; audio "
-          f"bit-equal [{card_line()}]")
-    PIPE_RESULTS[label] = dict(bit_equal=True, **{
+    same = "bit-equal" if bit_equal else f"max_abs_err={err:.3g} rel={rel:.3g}"
+    print(f"{kind} {label}: {secs:.2f} s of audio; {default} {line(res[default])} vs {base} "
+          f"{line(res[base])}; audio {same}{f' (bar {tol})' if bar else ''} [{card_line()}]")
+    results[label] = dict(bit_equal=bit_equal, max_abs_err=err, rel=rel, **{
         f"{m}_{k}": v for m, r in res.items() for k, v in r.items()})
-    return PIPE_RESULTS[label]
+    return results[label]
+
+
+@contextlib.contextmanager
+def pipeline_depth(depth: int):
+    """Inside, the fetch pipeline keeps `depth` blocks in flight."""
+    from pocket_tts_tpu_torch.pipeline import tts as ptts
+
+    default, ptts.PIPELINE_DEPTH = ptts.PIPELINE_DEPTH, depth
+    try:
+        yield
+    finally:
+        ptts.PIPELINE_DEPTH = default
+
+
+def pipelined_vs_unpipelined(model, label: str, request, keep=None) -> dict:
+    """`in_turns` with the fetch pipeline's PIPELINE_DEPTH patched to 1
+    (each block fetched before the next is dispatched) and at its default
+    (the next block decodes while the host waits on and emits the last),
+    the audio bit-equal in every run."""
+    modes = {"unpipelined": lambda: pipeline_depth(1), "pipelined": contextlib.nullcontext}
+    return in_turns(model, "pipelined vs unpipelined", label, request, modes, PIPE_RESULTS,
+                    keep=keep)
 
 
 PROMPT_RESULTS: dict = {}  # label -> prompt_vs_eager's numbers
@@ -1706,6 +1747,42 @@ def graph_nodes(model, states, token_lists: list[list[int]], label: str, K: int 
         lane.settle()
         lane.close()
     return got
+
+
+MESH_RESULTS: dict = {}  # label -> mesh_graph_vs_eager's numbers
+
+
+@contextlib.contextmanager
+def op_by_op(model):
+    """Inside, `model` runs every block and pass op by op on the card (its
+    bodies, as on the CPU): the baseline of the mesh's graphs."""
+    model._graphed = lambda: False
+    try:
+        yield
+    finally:
+        del model._graphed
+
+
+def mesh_graph_vs_eager(model, label: str, request) -> dict:
+    """`in_turns` on a sharded model with its step graphs on (the card's
+    default, the mesh's collectives inside them) and op by op (`op_by_op`):
+    the op-by-op audio bit-equal or within the bf16 bar (which held is
+    printed), every graphed run replaying graphs and no op-by-op run."""
+    modes = {"op by op": lambda: op_by_op(model), "graphed": contextlib.nullcontext}
+    r = in_turns(model, "mesh graph vs eager", label, request, modes, MESH_RESULTS, bar=True)
+    if r["op by op_replays"] != [0, 0] or 0 in r["graphed_replays"]:
+        raise AssertionError(f"mesh graph {label}: replays {r['graphed_replays']} graphed, "
+                             f"{r['op by op_replays']} op by op")
+    return r
+
+
+def hold_mesh_nodes(label: str, got: dict, L: int, K: int) -> None:
+    """A mesh's b1 block graph of K frames (graph_nodes' numbers): the layer
+    loop's kernels, flash_decode L a step and gemv at least 4L a step, and
+    no decode stack (refused under a mesh)."""
+    if got["decode_stack"] or got["flash_decode"] != L * K or got["gemv"] < 4 * L * K:
+        raise AssertionError(f"graph nodes {label}: {got}, want decode_stack 0, flash_decode "
+                             f"{L * K}, gemv at least {4 * L * K}")
 
 
 MAIN_TEXTS = ["hello world. this is a test of the tts.",
@@ -2406,6 +2483,8 @@ def launch_report(args: list[str], label: str) -> dict:
           f"[{card_line()}]")
     if not report["mesh_healthy"] or not all(n > 0 for n in report["row_samples"]):
         raise AssertionError(f"{label}: unhealthy mesh or empty rows: {report}")
+    if not report["graph_replays"]:
+        raise AssertionError(f"{label}: the job's blocks were not graph replays: {report}")
     return report
 
 
@@ -2444,12 +2523,44 @@ def parallel_noise(model, B: int, seed: int):
     return (noise * model.gen.temp ** 0.5).astype(np.float32)
 
 
+def collective_ms(model, request) -> dict:
+    """One request under the profiler: the device time of its NCCL kernels
+    (the all-reduces of every layer and the EOS agreement, each kernel's
+    time including its wait on the peer) and their count, per decode step
+    of the request, beside its whole device time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    n0 = model.decode_steps
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    steps = model.decode_steps - n0
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in events if "nccl" in e.name().lower()]
+    return dict(steps=steps, nccl_ms_per_step=sum(e.duration_ns() for e in nccl) / 1e6 / steps,
+                nccl_kernels_per_step=len(nccl) / steps,
+                device_ms_per_step=sum(e.duration_ns() for e in events) / 1e6 / steps)
+
+
 def tp_worker(argv: list[str]) -> int:
     """`chip_smoke.py --tp-worker RANK WORLD PORT CONFIG WAV OUT`: one rank of
-    a 1 x WORLD tensor-parallel job on cuda:RANK; rank 0 saves the b1
-    request's audio to OUT (.npy)."""
+    a 1 x WORLD tensor-parallel job on cuda:RANK: the b1 request graphed
+    (the card's default: the all-reduces inside the graphs) and op by op on
+    the same noise, then a longer request on a seed in turns
+    (mesh_graph_vs_eager) and once more graphed under the profiler
+    (collective_ms); rank 0 saves both audios of the b1 request and the
+    numbers to OUT (.npz). Every thread's stack is printed if the rank is
+    still running after 240 s (run_tp2 ends it at 300)."""
+    import faulthandler
+
     import numpy as np
     import torch
+
+    faulthandler.dump_traceback_later(240, file=sys.stdout)
 
     from pocket_tts_tpu_torch.parallel.mesh import make_mesh
     from pocket_tts_tpu_torch.parallel.multihost import assert_mesh_healthy, initialize_multihost
@@ -2463,17 +2574,41 @@ def tp_worker(argv: list[str]) -> int:
     model = TTSModel.load_model(config=config, param_dtype="bfloat16", eos_threshold=1e9,
                                 device=f"cuda:{rank}")
     model.shard_for_mesh(mesh, tensor_parallel=True)
-    audio = tp_stream(model, Path(wav), parallel_noise(model, 1, 71))
+    noise = parallel_noise(model, 1, 71)
+    audio = tp_stream(model, Path(wav), noise)
+    with op_by_op(model):
+        eager = tp_stream(model, Path(wav), noise)
+    if not model.step_graphs.replays:
+        raise AssertionError(f"TP={world}: no graph replay")
+    voice = model.get_state_for_audio_prompt(wav)
+
+    def request():
+        return stream_request(model, voice, MAIN_TEXTS[0], seed=41)
+
+    turns = mesh_graph_vs_eager(model, f"TP={world} b1 bf16 (rank {rank})", request)
+    nccl = collective_ms(model, request)
+    print(f"TP={world} b1 bf16 (rank {rank}) graphed: {nccl['steps']} steps, NCCL kernels "
+          f"{nccl['nccl_kernels_per_step']:.2f} a step, {nccl['nccl_ms_per_step']:.4f} ms a "
+          f"step of {nccl['device_ms_per_step']:.4f} ms device time a step [{card_line()}]",
+          flush=True)
     if not assert_mesh_healthy(mesh):
         raise RuntimeError("mesh heartbeat failed")
     if rank == 0:
-        np.save(out, audio)
+        np.savez(out, graphed=audio, eager=eager, **nccl,
+                 **{k: np.asarray(v) for k, v in turns.items() if not isinstance(v, dict)})
+    model.step_graphs.release()  # a graph holding NCCL work keeps the destroy below waiting
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
     torch.distributed.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
 def run_tp2(config: Path, wav: Path, tmp: Path):
-    """Two ranks of `tp_worker` on cuda:0 and cuda:1: rank 0's audio."""
+    """Two ranks of `tp_worker` on cuda:0 and cuda:1: rank 0's b1 audio
+    graphed, held to the same request op by op (bit-equal or the bf16
+    bar)."""
     import socket
 
     import numpy as np
@@ -2481,20 +2616,29 @@ def run_tp2(config: Path, wav: Path, tmp: Path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    out = tmp / "tp2.npy"
+    out = tmp / "tp2.npz"
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-worker",
                                str(r), "2", str(port), str(config), str(wav), str(out)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=300)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    deadline = time.monotonic() + 300
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0] + "\n(killed at the time limit)")
+    print("\n".join(ln for log in logs for ln in log.splitlines()
+                    if ln.startswith(("TP=", "mesh graph vs eager TP="))))
     if any(p.returncode for p in procs):
         raise AssertionError("TP=2 workers failed:\n" + "\n".join(logs))
-    return np.load(out)
+    saved = np.load(out)
+    hold_audio("parallel TP=2 b1 graphed vs op by op", [saved["graphed"]], [saved["eager"]])
+    MESH_RESULTS["TP=2 b1 collectives (rank 0)"] = {
+        k: float(saved[k]) for k in ("steps", "nccl_ms_per_step", "nccl_kernels_per_step",
+                                     "device_ms_per_step")}
+    return saved["graphed"]
 
 
 def run_parallel(tmp: Path, config: Path, wav_a: Path) -> dict:
@@ -2549,6 +2693,19 @@ def run_parallel(tmp: Path, config: Path, wav_a: Path) -> dict:
     launches = {k: counts[k] + counts4[k] for k in counts}
     print(f"parallel TP 1x1: b1 {steps} steps, launches {counts}; B=4 {steps4} steps, "
           f"launches {counts4} [{card_line()}]")
+
+    # the mesh's passes graphed against the same passes op by op, on one seed
+    voice = voices_tp[0]
+    mesh_graph_vs_eager(tp, "TP 1x1 b1 bf16",
+                        lambda: stream_request(tp, voice, MAIN_TEXTS[0], seed=41))
+
+    def batch():
+        rows = tp.generate_audio_batch(voices_tp, PARALLEL_TOKENS, frames_after_eos=2, seed=42)
+        return np.concatenate(rows), None
+
+    mesh_graph_vs_eager(tp, "TP 1x1 B=4 bf16", batch)
+    nodes = graph_nodes(tp, voice, [PARALLEL_TOKENS[0]], "mesh TP 1x1 b1")
+    hold_mesh_nodes("mesh TP 1x1 b1", nodes["K=8"], L, 8)
     dist.destroy_process_group()
     del ref, tp
 
@@ -2628,11 +2785,10 @@ def http_call(url: str, path: str, data: bytes | None = None, ctype: str | None 
     return status, body, (time.perf_counter() - t0) * 1e3
 
 
-def mesh_requests(url: str, wav_b: Path, label: str, devices: int | None) -> list:
-    """Two POST /tts (the default voice: a clone into the LRU; a multipart
-    upload of wav b), then /health (timed) and /metrics: each WAV's PCM as
-    float (1/32767), each request's first chunk ms, audio-s/s and per-chip
-    audio-s/s printed. `devices`: the mesh's size (None: no mesh)."""
+def tts_posts(url: str, wav_b: Path, label: str) -> tuple[list, list]:
+    """Two POST /tts (the default voice: a clone into the LRU, or a hit; a
+    multipart upload of wav b, cloned each time): each WAV's PCM as float
+    (1/32767), and each request's `last_request` of /metrics."""
     import numpy as np
 
     boundary = "MESHBOUNDARY"
@@ -2641,7 +2797,7 @@ def mesh_requests(url: str, wav_b: Path, label: str, devices: int | None) -> lis
               f"name=\"voice_wav\"; filename=\"{wav_b.name}\"\r\n"
               "Content-Type: audio/wav\r\n\r\n").encode() + wav_b.read_bytes() + \
         f"\r\n--{boundary}--\r\n".encode()
-    bodies = []
+    bodies, metrics = [], []
     for data, ctype in ((("text=" + SERVER_TEXTS[0].replace(" ", "+")).encode(),
                          "application/x-www-form-urlencoded"),
                         (upload, f"multipart/form-data; boundary={boundary}")):
@@ -2650,6 +2806,15 @@ def mesh_requests(url: str, wav_b: Path, label: str, devices: int | None) -> lis
             raise AssertionError(f"{label}: /tts answered {status}: {body[:200]!r}")
         bodies.append(np.frombuffer(body[44:44 + 2 * ((len(body) - 44) // 2)],
                                     "<i2").astype(np.float32) / 32767)
+        metrics.append(json.loads(http_call(url, "/metrics", timeout=60)[1])["last_request"])
+    return bodies, metrics
+
+
+def mesh_requests(url: str, wav_b: Path, label: str, devices: int | None) -> list:
+    """tts_posts, then /health (timed) and /metrics: each WAV's PCM as
+    float (1/32767), each request's first chunk ms, audio-s/s and per-chip
+    audio-s/s printed. `devices`: the mesh's size (None: no mesh)."""
+    bodies, _ = tts_posts(url, wav_b, label)
     want = ({"status": "ok"} if devices is None else
             {"status": "ok", "mesh": "healthy", "devices": devices})
     health_ms = []
@@ -2681,7 +2846,9 @@ def run_server_mesh(tmp: Path, config: Path, wav_a: Path, wav_b: Path) -> dict:
     the bf16 bar and its route checked as run_parallel checks it (decode
     stack 0, flash_decode L a step, gemv >= 4L a step). With two cards or
     more, also 2 ranks at TP=2 (run_server_tp2). Returns the 1 x 1 server's
-    launches."""
+    launches. The mesh server's two requests also run graphed and op by op
+    in turns (mesh_graph_vs_eager)."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -2706,9 +2873,15 @@ def run_server_mesh(tmp: Path, config: Path, wav_a: Path, wav_b: Path) -> dict:
     model.decode_steps = 0
     with http_server(model, wav_a, plane) as (url, serving):
         got = mesh_requests(url, wav_b, "server mesh TP 1x1", 1)
+        counts, steps = read_counts(), model.decode_steps
+
+        def server_request():
+            bodies, metrics = tts_posts(url, wav_b, "server mesh TP 1x1")
+            return np.concatenate(bodies), metrics[0]["first_chunk_ms"]
+
+        mesh_graph_vs_eager(model, "server TP 1x1 bf16 (2 requests)", server_request)
         if serving.error is not None:
             raise AssertionError(f"server mesh TP 1x1: degraded: {serving.error}")
-    counts, steps = read_counts(), model.decode_steps
     check_route("server mesh TP 1x1", counts, steps, L, b1=False, skinny=True)
     hold_audio("server mesh TP 1x1 vs unsharded server", got, want)
     print(f"server mesh TP 1x1: {steps} decode steps, launches {counts}")
@@ -2724,10 +2897,13 @@ def run_server_mesh(tmp: Path, config: Path, wav_a: Path, wav_b: Path) -> dict:
 def server_rank(argv: list[str]) -> int:
     """`chip_smoke.py --server-rank RANK WORLD PORT CONFIG WAV_A WAV_B OUT
     [FOLLOWER_PID]`: one rank of a 1 x WORLD TP job behind one server on
-    cuda:RANK. A follower (RANK > 0) runs api/server.follow; rank 0 serves
+    cuda:RANK, every pass a graph replay with the all-reduces inside. A
+    follower (RANK > 0) runs api/server.follow; rank 0 serves
     mesh_requests, then starts a long request and, once its first chunk has
-    come, kills FOLLOWER_PID: rank 0's request thread is then in an NCCL
-    all-reduce that will not end by itself. It checks that /health answers
+    come, kills FOLLOWER_PID: rank 0's request thread is then waiting on a
+    replay whose NCCL all-reduce will not end by itself. It checks that
+    the requests ran graphs, that after the loss the model keeps no lane
+    or pass (StepGraphs.abandon), that /health answers
     503 naming the lost heartbeat within HEALTH_TIMEOUT_S + 5 s, that the
     request's stream ends cut within HEALTH_TIMEOUT_S + 15 s (the watch
     aborted the mesh's NCCL communicators), that POST /tts answers 503 at
@@ -2777,6 +2953,9 @@ def server_rank(argv: list[str]) -> int:
     try:
         with http_server(model, Path(wav_a), plane) as (url, serving):
             bodies = mesh_requests(url, Path(wav_b), f"server mesh TP={world}", world)
+            replays = model.step_graphs.replays
+            if not replays:
+                raise AssertionError(f"server mesh TP={world}: the requests ran no graph")
             req = urllib.request.Request(
                 url + "/tts",
                 data=b"text=" + b"+".join([b"a+long+request+to+lose+a+rank."] * 4),
@@ -2805,6 +2984,12 @@ def server_rank(argv: list[str]) -> int:
                              "application/x-www-form-urlencoded", timeout=60)
             time.sleep(HEALTH_TIMEOUT_S)
             later = http_call(url, "/health", timeout=HEALTH_TIMEOUT_S + 30)
+            sg = model.step_graphs
+            dropped = sg.lost is not None and not sg.lanes and not sg.passes
+            print(f"server mesh TP={world}: {replays} replays before the long request, "
+                  f"{sg.replays - replays} in it; graphs after the loss: lost {sg.lost!r}, "
+                  f"{len(sg.lanes)} lanes and {len(sg.passes)} passes kept, "
+                  f"{len(sg.abandoned)} parked", flush=True)
             print(f"server mesh TP={world}, follower killed after {first} bytes of a "
                   f"request: /health {status} after {health_ms:.1f} ms {body[:160]!r}; the "
                   f"stream ended after {stream_ms:.1f} ms (cut: {cut}, {rest} more bytes); "
@@ -2814,7 +2999,7 @@ def server_rank(argv: list[str]) -> int:
             if not (status == 503 and health_ms <= (HEALTH_TIMEOUT_S + 5) * 1e3
                     and cut not in ("no", "TimeoutError")
                     and stream_ms <= (HEALTH_TIMEOUT_S + 15) * 1e3
-                    and post[0] == 503 and post[2] < 2e3 and later[0] == 503):
+                    and post[0] == 503 and post[2] < 2e3 and later[0] == 503 and dropped):
                 raise AssertionError("server mesh: a follower killed inside a generation did "
                                      "not turn the server degraded and end the request in time")
         np.savez(out, *bodies, health_ms=health_ms, stream_ms=stream_ms, post_ms=post[2])
@@ -3138,6 +3323,9 @@ def main() -> int:
         print(f"prompt summary {label}: " + json.dumps(
             {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()},
             default=str))
+    for label, r in MESH_RESULTS.items():
+        print(f"mesh summary {label}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{card_line()}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

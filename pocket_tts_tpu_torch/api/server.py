@@ -417,13 +417,21 @@ class _Serving:
         """A follower is lost (the plane's watch): degraded for good, and the
         mesh's NCCL communicators aborted, so that a request waiting in one
         of its collectives fails instead of waiting for the group's timeout
-        and its watchdog's teardown of this process."""
+        and its watchdog's teardown of this process (a graph replay that
+        waits in one included); then the model's graphs are abandoned: the
+        running request's next replay raises, and every lane and pass goes
+        once the device is done with it."""
         self.error = self.error or message
         logger.error("mesh degraded: %s", message)
+        graphs = self.model.step_graphs
+        # before the abort ends the running replay: the request's next
+        # replay or agreement raises instead of running on the aborted mesh
+        graphs.lost = message
         try:
             logger.error("aborted %d NCCL group(s) of the mesh", abort_mesh(self.model.mesh))
         except Exception:  # noqa: BLE001 — degraded either way
             logger.exception("aborting the mesh's NCCL groups failed")
+        graphs.abandon(message)
 
     @property
     def n_chips(self) -> int:
@@ -732,7 +740,16 @@ def serve(model, host: str = "0.0.0.0", port: int = 8000,
     process of the job calls this with the same arguments (after
     `shard_for_mesh`): it makes the control plane, rank 0 serves and sends
     `stop` when it shuts down, and every other rank follows and returns on
-    `stop`."""
+    `stop`. It returns with the model's step graphs released."""
+    try:
+        _serve(model, host, port, default_voice)
+    finally:
+        # a graph that holds the mesh's NCCL work keeps the caller's
+        # destroy_process_group waiting: none is left behind
+        model.step_graphs.release()
+
+
+def _serve(model, host: str, port: int, default_voice: str) -> None:
     plane = None
     if model.mesh is not None:
         plane = ControlPlane()

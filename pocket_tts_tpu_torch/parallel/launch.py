@@ -245,6 +245,7 @@ def run_worker(args) -> dict:
         "audio_checksum": round(float(sum(np.abs(a).sum() for a in all_audio)), 4),
         "mesh_healthy": bool(healthy),
         "decode_s": round(decode_s, 3),
+        "graph_replays": model.step_graphs.replays,  # this process's (0 op by op, on the CPU)
         "device": str(device) if device.type == "cpu" else torch.cuda.get_device_name(device),
     }
     if pid == 0:

@@ -104,6 +104,24 @@ def any_over_model(flags: torch.Tensor, tp: ModelGroup | None) -> torch.Tensor:
     return agreed > 0
 
 
+def max_over_model(values: list[int], tp: ModelGroup | None, device) -> list[int]:
+    """Each host int, the largest any rank of the model group holds: one
+    all-reduce (on `device`, the group's) and a host read, for a decision
+    every rank of the group must take alike outside a step (what the step
+    graphs keep, whose captures and replays hold the group's collectives)."""
+    if tp is None or tp.size == 1:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=tp.group)
+    return t.tolist()
+
+
+def captures_collectives(mesh) -> bool:
+    """Whether a CUDA graph can hold the mesh's collectives: every group of
+    its dims is NCCL's (gloo's run on the host and cannot be captured)."""
+    return all(dist.get_backend(mesh.get_group(d)) == "nccl" for d in DIMS)
+
+
 def make_mesh(n_data: int | None = None, n_model: int = 1, device=None):
     """A ('data', 'model') DeviceMesh over every process of the job. Joins a
     group first if this process has none (`multihost.initialize_multihost`

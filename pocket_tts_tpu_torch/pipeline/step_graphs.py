@@ -12,9 +12,9 @@ and the Mimi decoder over the block's latents (`TTSModel._decode_block`),
 with the flow noise drawn on the device (`TTSModel._noise`, a fixed amount
 of work) or copied in from a `noise_source`. Every chunk (`_generate_chunk`,
 `generate_audio_batch`) decodes in a `Lane`: the buffers of its B rows. On
-the card an unsharded model captures each block once per key and replays
-it. On the CPU and under a mesh (whose step holds collectives) the lane
-calls the same body op by op.
+the card a model captures each block once per key and replays it, unsharded
+or sharded over a mesh whose collectives are NCCL's (see "Under a mesh").
+On the CPU, and on a gloo mesh, the lane calls the same body op by op.
 
 Dispatch and fetch. `Lane.dispatch(K)` queues one block and returns a
 `Ticket`; `Lane.fetch(ticket)` waits for it and returns the block's EOS
@@ -106,8 +106,33 @@ as the graph's launches per replay, which each replay adds
 (ops/build.add_launches).
 
 A capture, replay or copy that fails raises: there is no op-by-op or
-unpipelined carry-on on the card. On the CPU and under a mesh every pass
+unpipelined carry-on on the card. On the CPU and on a gloo mesh every pass
 runs the same body op by op.
+
+Under a mesh (TTSModel.shard_for_mesh, NCCL on the card) the graphs hold
+the step's collectives: each layer's two tensor-parallel all-reduces and
+the EOS agreement of the model group (parallel/mesh.reduce_from_model,
+any_over_model), in the blocks, the text prompts and the voice prompts (the
+encoder and the speaker projection are whole on every rank and hold none).
+The seed's broadcast, the gather of the data ranks' rows and the mesh
+heartbeat stay host work between replays, on the same communicators. A
+capture's warm-up runs the body's collectives once (creating the group's
+communicator lazily before any capture) and the capture records them
+without running them, so every rank of a model group runs the same
+collectives in the same order only if every rank keeps, drops and captures
+the same graphs at the same points. So what the ranks of a model group keep
+is decided on agreed numbers (`StepGraphs.agree`, an all-reduce over the
+group at a capture, at a new slab or pass and wherever room is made; never
+per block): each capture's pool growth is the group's largest, and the
+budget the group's least. Under data parallelism a lane holds this rank's
+`rows` of a batch of `B_noise`: the device noise is drawn for the whole
+batch inside the graph and the rank's rows kept, injected noise is this
+rank's rows of the host's whole-batch draw, so the audio does not depend on
+the sharding; lanes are keyed by (B, rows, B_noise). When the server aborts
+the mesh's NCCL communicators (a lost follower), `StepGraphs.abandon` makes
+every later replay raise and drops the lanes and passes once the device is
+done with them: a graph that holds an aborted communicator is never
+replayed.
 """
 
 from __future__ import annotations
@@ -125,6 +150,7 @@ from pocket_tts_tpu_torch.nn.transformer import StackState, local_heads
 from pocket_tts_tpu_torch.ops.build import add_launches, launch_counts
 from pocket_tts_tpu_torch.ops.decode_stack import stack_takes_rows
 from pocket_tts_tpu_torch.ops.flash_decode import MAX_ATT
+from pocket_tts_tpu_torch.parallel.mesh import max_over_model
 from pocket_tts_tpu_torch.pipeline.states import place_states
 
 KEEP_FRACTION = 0.25  # of the card's memory: the default budget of idle slabs
@@ -212,8 +238,9 @@ class _Slab:
 class _PassGraph:
     """One captured pass over fixed buffers: `warm_up()` once op by op on
     the capture's stream, then `body()` captured into `holder`'s memory
-    pool (a `_Slab` or a `_Pass`: made at its first capture; its growth,
-    `pool_bytes`, is added to `holder.pool_bytes`). `out` is what the body
+    pool (a `_Slab` or a `_Pass`: made at its first capture; its growth
+    here, `pool_bytes`, is this process's: StepGraphs.keep adds the model
+    group's largest to `holder.pool_bytes`). `out` is what the body
     returned (the graph's output tensors); `launches` the kernel launches
     one replay makes. `generator`: a generator each replay advances."""
 
@@ -244,7 +271,6 @@ class _PassGraph:
             add_launches({k: before[k] - after[k] for k in after})
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = max(0, torch.cuda.memory_reserved(dev) - reserved)
-        holder.pool_bytes += self.pool_bytes
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.graph = graph
         self.replays = 0
@@ -273,9 +299,9 @@ class _BlockGraph(_PassGraph):
 class Lane:
     """The buffers a stream's chunks of B rows decode in, and the block
     graphs captured on them (see the module docstring). `graphed`: replay
-    each block, else call its body op by op. Op by op under a mesh the lane
-    holds this rank's `rows` of a batch of `B_noise` rows, whose noise is
-    drawn whole and sliced."""
+    each block, else call its body op by op. Under data parallelism the
+    lane holds this rank's `rows` of a batch of `B_noise` rows, whose noise
+    is drawn whole and sliced, graphed or not."""
 
     def __init__(self, owner: "StepGraphs", B: int, graphed: bool,
                  rows: slice = slice(None), B_noise: int | None = None):
@@ -337,8 +363,11 @@ class Lane:
             try:
                 slab = make()
             except torch.cuda.OutOfMemoryError:
-                self.owner.make_room(0, budget=0)  # every idle slab goes first
-                slab = make()
+                slab = None
+            # every idle slab and pass goes first where a rank of the group ran out
+            if (self.owner.agree(slab is None)[0] if self.graphed else slab is None):
+                self.owner.make_room(0, budget=0)
+                slab = slab or make()
             self.slabs[C] = slab
         slab.used = self.owner.tick()
         return slab
@@ -382,6 +411,7 @@ class Lane:
         else:
             graph = self._prompt_graph(pad_to)
             self.tickets.append(self.owner.upload(graph.tokens, host))
+            self.owner.check()
             graph.replay()
             self.owner.replays += 1
         self.write_pos += pad_to
@@ -411,6 +441,7 @@ class Lane:
             graph.tokens = tokens
             s.pool_bytes += tokens.numel() * tokens.element_size()
             with self.owner.lock:
+                self.owner.keep(s, graph)
                 self.prompts[key] = graph
         return graph
 
@@ -450,11 +481,15 @@ class Lane:
         m = self.model
         s = self.slab
         if noise is None:
-            gen = torch.Generator(device=m.device).manual_seed(0)
-            noise = m._noise(gen, (K, self.B, m.specs.ldim))
+            noise = self._draw(torch.Generator(device=m.device).manual_seed(0), K)
         lm = StackState(s.k, s.v, s.pos, s.offset.clone(), self.write_pos, s.wp.clone())
         mimi = tree_map(torch.clone, self.mimi)
         m._decode_block(lm, mimi, self.prev.clone(), self.is_bos.clone(), noise)
+
+    def _draw(self, gen: torch.Generator, K: int) -> torch.Tensor:
+        """Device noise of one block for this lane's rows: [K, B_noise, ldim]
+        drawn whole, this rank's rows kept."""
+        return self.model._noise(gen, (K, self.B_noise, self.model.specs.ldim))[:, self.rows]
 
     def block(self, K: int, noise: torch.Tensor | None) -> torch.Tensor:
         """The body a graph holds: noise (drawn here when None), the block,
@@ -462,7 +497,7 @@ class Lane:
         EOS step and the frame count advanced; returns pack_block's output."""
         m = self.model
         if noise is None:
-            noise = m._noise(self.gen, (K, self.B, m.specs.ldim))
+            noise = self._draw(self.gen, K)
         latents, flags, audio, lm, mimi = m._decode_block(self.state(), self.mimi, self.prev,
                                                           self.is_bos, noise)
         self.slab.offset.copy_(lm.offset)
@@ -489,6 +524,7 @@ class Lane:
         if graph is None:
             graph = _BlockGraph(self, K, injected)
             with self.owner.lock:
+                self.owner.keep(self.slab, graph)
                 self.graphs[key] = graph
         return graph
 
@@ -502,7 +538,8 @@ class Lane:
                              f"capacity {C}")
         self.tickets = [t for t in self.tickets if not (t.fetched or t.abandoned and t.done())]
         if not self.graphed:
-            noise = m._block_noise(self.gen, self.noise_source, K, self.B_noise)[:, self.rows]
+            noise = (None if self.noise_source is None else torch.from_numpy(
+                m._host_noise(self.noise_source, K, self.B_noise)[:, self.rows]).to(m.device))
             ticket = Ticket(K, out=self.block(K, noise).cpu().numpy())
         else:
             if self.flash and self.write_pos + K - 1 > MAX_ATT:
@@ -513,8 +550,10 @@ class Lane:
             ticket.slot = self.owner.take_slot(ticket)
             if graph.noise is not None:
                 host = ticket.slot.view("noise", tuple(graph.noise.shape))
-                host.copy_(torch.from_numpy(m._host_noise(self.noise_source, K, self.B)))
+                host.copy_(torch.from_numpy(
+                    m._host_noise(self.noise_source, K, self.B_noise)[:, self.rows]))
                 graph.noise.copy_(host, non_blocking=True)
+            self.owner.check()
             graph.replay()
             self.owner.replays += 1
             ticket.shape = tuple(graph.out.shape)
@@ -631,11 +670,54 @@ class StepGraphs:
         self._next_slot = 0
         self.lock = threading.RLock()
         self._tick = 0
+        self.lost: str | None = None  # why the mesh's communicators were aborted
+        self.abandoned: list = []  # the lanes and passes kept, not destroyed, since the abort
+
+    def agree(self, *values) -> list[int]:
+        """Each int (or bool), the largest any rank of the model's tensor-
+        parallel group holds (parallel/mesh.max_over_model): the ranks whose
+        graphs share collectives keep, drop and capture alike. Itself a host
+        read, so it is called at captures and where room is made, never per
+        block. Without such a group, the values. Raises once the mesh was
+        lost (`check`): a collective on it would wait for the lost rank."""
+        self.check()
+        tp = self.model._tp
+        return max_over_model([int(v) for v in values], tp, self.model.device)
+
+    def keep(self, holder, graph) -> None:
+        """Count a new capture's pool growth in `holder` (its slab or pass):
+        the model group's largest, so every rank holds the same bytes."""
+        graph.pool_bytes = self.agree(graph.pool_bytes)[0]
+        holder.pool_bytes += graph.pool_bytes
+
+    def check(self) -> None:
+        """Raise once the mesh's communicators were aborted: no graph that
+        holds them is replayed or captured again."""
+        if self.lost is not None:
+            raise RuntimeError(f"the mesh's communicators were aborted ({self.lost}): "
+                               "its graphs are not replayed again")
+
+    def abandon(self, reason: str) -> None:
+        """The mesh's NCCL communicators were aborted (the server lost a
+        follower, and set `lost` before the abort): every later replay,
+        capture or agreement raises (`check`), and the lanes and passes go
+        once the device is done with them (the abort ends a collective that
+        waits on the lost peer). Their graphs are
+        parked in `abandoned`, not destroyed: destroying a graph releases
+        the NCCL work it holds against a communicator the abort tore down,
+        and a degraded process serves nothing more with them."""
+        self.lost = reason
+        with self.lock:
+            self.abandoned += [ln for lanes in self.lanes.values() for ln in lanes]
+            self.abandoned += list(self.passes.values())
+            self.release()
 
     def _graphing(self) -> None:
-        """Before a graphed lane or pass is taken (under the lock): every
-        graph is dropped when the model's weights are not the ones they were
+        """Before a graphed lane or pass is taken (under the lock): raises
+        once the mesh's communicators were aborted (`abandon`); every graph
+        is dropped when the model's weights are not the ones they were
         captured on; the capture stream and the default budget are made."""
+        self.check()
         m = self.model
         weights = (m.params, m.mimi_params)
         if len(self.weights) != 2 or any(a is not b for a, b in zip(weights, self.weights)):
@@ -648,11 +730,12 @@ class StepGraphs:
                               * torch.cuda.get_device_properties(m.device).total_memory)
 
     def acquire(self, B: int, rows: slice = slice(None), B_noise: int | None = None) -> Lane:
-        """A lane for a stream of B rows (its noise is set per chunk,
-        Lane.start). Graphed (model._graphed()): a free lane of the model's
-        (a new one when every lane of B is held; every lane is dropped first
-        when the model's weights are not the ones the graphs were captured
-        on). Else a lane of its own, kept by nobody."""
+        """A lane for a stream of B rows, this rank's `rows` of a batch of
+        `B_noise` (its noise is set per chunk, Lane.start). Graphed
+        (model._graphed()): a free lane of the model's for (B, rows,
+        B_noise) (a new one when every such lane is held; every lane is
+        dropped first when the model's weights are not the ones the graphs
+        were captured on). Else a lane of its own, kept by nobody."""
         m = self.model
         if not m._graphed():
             lane = Lane(self, B, False, rows, B_noise)
@@ -660,10 +743,11 @@ class StepGraphs:
             return lane
         with self.lock:
             self._graphing()
-            lanes = self.lanes.setdefault(B, [])
+            B_noise = B if B_noise is None else B_noise
+            lanes = self.lanes.setdefault((B, rows.start, rows.stop, B_noise), [])
             lane = next((ln for ln in lanes if not ln.busy), None)
             if lane is None:
-                lane = Lane(self, B, True)
+                lane = Lane(self, B, True, rows, B_noise)
                 lanes.append(lane)
             lane.busy = True
             return lane
@@ -690,11 +774,13 @@ class StepGraphs:
                 self.make_room(entry.nbytes)
                 entry.graph = _PassGraph(self.stream, entry, lambda: body(entry.bufs),
                                          lambda: body(entry.bufs))
+                self.keep(entry, entry.graph)
                 self.passes[key] = entry
             entry.used = self.tick()
             entry.busy = True
             try:
                 fill(entry.bufs)
+                self.check()
                 entry.graph.replay()
                 self.replays += 1
                 out = take(entry.graph.out)
@@ -751,11 +837,17 @@ class StepGraphs:
 
     def make_room(self, nbytes: int, budget: int | None = None) -> None:
         """Drop idle slabs and passes, least recently used first, until what
-        is held and `nbytes` more fit `budget` (default: self.budget); then
-        the idle lanes left with no slab. A slab is idle unless it is the
-        current slab of a lane a stream holds; a pass unless it is running."""
+        is held and `nbytes` more fit `budget` (default: self.budget; under
+        tensor parallelism the least budget of the model group, `agree`);
+        then the idle lanes left with no slab. A slab is idle unless it is
+        the current slab of a lane a stream holds; a pass unless it is
+        running. Nothing is made room for once the mesh was lost."""
+        if self.lost is not None:
+            return
         budget = self.budget if budget is None else budget
-        if budget is None:
+        unbounded = 2**62
+        budget = -self.agree(-(unbounded if budget is None else budget))[0]
+        if budget >= unbounded:
             return
         with self.lock:
             held = self.held()
@@ -784,10 +876,12 @@ class StepGraphs:
                 self._drop_pass(key)
 
     def stats(self) -> list[dict]:
-        """Per kept block graph: B, K, C, the noise kind, its warm-up's and
-        its capture's seconds, replays and the kernel launches of one replay."""
+        """Per kept block graph: B, its lane's rows and B_noise, K, C, the
+        noise kind, its warm-up's and its capture's seconds, replays and the
+        kernel launches of one replay."""
         with self.lock:
-            return [dict(B=lane.B, K=key[0], C=key[1], noise=key[4] if key[4] == "injected"
+            return [dict(B=lane.B, rows=(lane.rows.start, lane.rows.stop), B_noise=lane.B_noise,
+                         K=key[0], C=key[1], noise=key[4] if key[4] == "injected"
                          else "device", warmup_s=g.warmup_s, capture_s=g.capture_s,
                          replays=g.replays, launches=dict(g.launches))
                     for lanes in self.lanes.values() for lane in lanes

@@ -17,12 +17,14 @@ first for first-chunk latency, then 8, then 32). Each frame runs the FlowLM
 decode step (the decode-stack kernel on the card) and the flow head; each
 block's latents then go through the Mimi decoder in one call (the codec
 kernel on the card), and the block's EOS flags and audio come to the host
-with one copy. On the card an unsharded model runs each block as one CUDA
-graph replay (pipeline/step_graphs.py: the counterpart of the JAX package's
-jitted `_fused_step_fn` / `_multi_step_fn`), and so each pass ahead of the
-blocks: the text prompt (`_text_prompt`, its `_text_prompt_fn`), the voice
-prompt (`_voice_prompt`, its `_audio_prompt_fn`) and the encoder (`_encode`,
-its `_encode_fn`), keyed by their buckets; the CPU and a mesh run the same
+with one copy. On the card the model runs each block as one CUDA graph
+replay (pipeline/step_graphs.py: the counterpart of the JAX package's jitted
+`_fused_step_fn` / `_multi_step_fn`), and so each pass ahead of the blocks:
+the text prompt (`_text_prompt`, its `_text_prompt_fn`), the voice prompt
+(`_voice_prompt`, its `_audio_prompt_fn`) and the encoder (`_encode`, its
+`_encode_fn`), keyed by their buckets; unsharded, or sharded over a mesh
+whose collectives are NCCL's, which the graphs then hold (the JAX package
+jits these passes under a mesh too). The CPU and a gloo mesh run the same
 bodies op by op, in the same buffers.
 Emission follows the JAX package exactly (`_ChunkEmit`): the frames after
 the first EOS, the frames-after-EOS allowance and the break step.
@@ -82,7 +84,10 @@ noise (the replicated flow head's latent is the next step's input): without
 a seed or a noise_source, the mesh's first rank picks the seed and sends it
 to the others. Under any mesh the decode stack is refused, as in the JAX
 package: a b1 step takes the layer loop (flash decode and the gemv op at the
-rank's shapes).
+rank's shapes). On the card every rank replays the same graphs, their
+collectives inside them (pipeline/step_graphs.py, "Under a mesh"), so every
+rank of a model group calls the entry points in the same order, as the
+collectives already require.
 """
 
 from __future__ import annotations
@@ -147,6 +152,7 @@ from pocket_tts_tpu_torch.ops.codec_decode import pack_decoder_params
 from pocket_tts_tpu_torch.parallel.mesh import (
     any_over_model,
     broadcast_seed,
+    captures_collectives,
     data_rows,
     gather_rows,
     gather_state,
@@ -370,6 +376,7 @@ class TTSModel:
         self.model_recommended_frames_after_eos = config.model_recommended_frames_after_eos
         self.decode_steps = 0  # FlowLM decode steps run by this model (all requests)
         self.mesh = None  # set by shard_for_mesh for sharded serving
+        self._mesh_captures = False  # whether a graph can hold the mesh's collectives
         self.step_graphs = StepGraphs(self)  # the chunks' block loops
 
     @property
@@ -559,10 +566,10 @@ class TTSModel:
         (`_encode_fn`) the wav is zero-padded to a frame bucket
         (ENCODER_FRAME_BUCKETS) and the latents are cut back to the voice's
         own frames; every stage is causal, so the kept frames do not depend
-        on the padding. On the card, unsharded, one graph replay per
-        (B, frame bucket) (StepGraphs.run_pass); op by op elsewhere. Mimi and
-        the projection are whole on every rank of a mesh, so this runs no
-        collective."""
+        on the padding. On the card one graph replay per (B, frame bucket)
+        (StepGraphs.run_pass), under a mesh too; op by op on the CPU. Mimi
+        and the projection are whole on every rank of a mesh, so this runs
+        no collective."""
         audio = np.asarray(audio, dtype=np.float32)
         if audio.ndim == 2:
             audio = audio[None]
@@ -619,9 +626,10 @@ class TTSModel:
         package the conditioning stays f32 through the prompt pass (the
         cache takes the model dtype), right-padded with zeros to its
         PROMPT_BUCKETS bucket after the BOS row where the config inserts it.
-        On the card, unsharded, one graph replay per (B, pad_to, C) over
-        fixed buffers (StepGraphs.run_pass); op by op elsewhere. The state
-        returned is copied into tensors of its own: no later pass writes it."""
+        On the card one graph replay per (B, pad_to, C) over fixed buffers
+        (StepGraphs.run_pass), under a mesh too, where the graph holds the
+        layers' all-reduces; op by op on the CPU. The state returned is
+        copied into tensors of its own: no later pass writes it."""
         cond = cond.to(self.device, torch.float32)
         B, n, D = cond.shape
         bos = int(self.specs.insert_bos_before_voice)
@@ -700,7 +708,10 @@ class TTSModel:
         its heads of the FlowLM backbone (and of the KV cache) and its share
         of the feed-forward features, over `model`; the flow head and Mimi
         stay whole. Voice states made before the call do not fit a TP model:
-        build or import them after it."""
+        build or import them after it. On the card the model's graphs then
+        hold the mesh's NCCL work: call `step_graphs.release()` before
+        destroying the process group, whose destroy waits for every graph
+        that holds its communicators."""
         if self.mesh is not None:
             raise ValueError("the model is already sharded")
         tp = model_group(mesh, tensor_parallel)
@@ -709,6 +720,7 @@ class TTSModel:
             self.params["transformer"], cfg.num_heads, tp)}
         self.specs = dataclasses.replace(self.specs, transformer=cfg._replace(tp=tp))
         self.mesh = mesh
+        self._mesh_captures = captures_collectives(mesh)
         self._voice_state_cache.clear()
         self.step_graphs.release()
 
@@ -730,14 +742,6 @@ class TTSModel:
         ldim = self.specs.ldim
         noise = noise_source((B, ldim) if K == 1 else (K, B, ldim))
         return np.ascontiguousarray(np.asarray(noise, dtype=np.float32).reshape(K, B, ldim))
-
-    def _block_noise(self, gen: torch.Generator | None, noise_source: Callable | None,
-                     K: int, B: int) -> torch.Tensor:
-        """[K, B, ldim] flow noise for one block on the device: drawn there,
-        or asked of `noise_source` (`_host_noise`)."""
-        if noise_source is None:
-            return self._noise(gen, (K, B, self.specs.ldim))
-        return torch.from_numpy(self._host_noise(noise_source, K, B)).to(self.device)
 
     def _decode_block(self, lm_state: StackState, mimi_state: dict, prev_latent: torch.Tensor,
                       is_bos: torch.Tensor, noise: torch.Tensor):
@@ -784,9 +788,10 @@ class TTSModel:
         return z.clamp(-self.gen.noise_clamp, self.gen.noise_clamp)
 
     def _graphed(self) -> bool:
-        """Whether a chunk's blocks run as CUDA graph replays: on the card,
-        unsharded (a mesh's step holds collectives)."""
-        return self.device.type == "cuda" and self.mesh is None
+        """Whether the blocks and the passes ahead of them run as CUDA graph
+        replays: on the card, unsharded or on a mesh whose collectives NCCL
+        runs (the graphs hold them; gloo's cannot be captured)."""
+        return self.device.type == "cuda" and (self.mesh is None or self._mesh_captures)
 
     @typechecked(
         model_state=StackState, text_to_generate=str, max_tokens=int,

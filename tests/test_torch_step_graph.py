@@ -27,6 +27,7 @@ from pocket_tts_tpu_torch.models.mimi import build_mimi_specs
 from pocket_tts_tpu_torch.pipeline import tts as ptts
 from pocket_tts_tpu_torch.pipeline.states import expand_state as port_expand_state
 from pocket_tts_tpu_torch.quant import quantize_flow_lm_int8 as port_int8
+from torch_parallel_worker import DirectGraph, DirectPass  # noqa: F401 — also imported from here
 from torch_port import host, port, write_small_config, write_small_port_checkpoint
 
 TOL = 1e-5
@@ -242,38 +243,6 @@ def test_device_noise_law(f32):
     std = temp ** 0.5
     law = scipy.stats.truncnorm(-clamp / std, clamp / std, scale=std)
     assert scipy.stats.kstest(z, law.cdf).pvalue > 1e-3
-
-
-class DirectGraph:
-    """A step graph's stand-in on the CPU: the capture's warm-up runs (it
-    must change nothing the chunk reads), then each replay calls the body
-    the graph would hold (Lane.block) on the lane's buffers, into `out`."""
-
-    def __init__(self, lane, K, injected):
-        self.lane, self.K = lane, K
-        self.noise = torch.zeros((K, lane.B, lane.model.specs.ldim)) if injected else None
-        self.warmup_s, self.capture_s, self.launches, self.replays = 0.0, 0.0, {}, 0
-        lane.warm_up(K, self.noise)
-
-    def replay(self):
-        self.replays += 1
-        self.out = self.lane.block(self.K, self.noise)
-
-
-class DirectPass:
-    """A prompt or encoder graph's stand-in on the CPU (in place of
-    step_graphs._PassGraph): the warm-up runs, then each replay calls the
-    body the graph would hold, into `out`."""
-
-    def __init__(self, stream, holder, warm_up, body, generator=None):
-        self.body = body
-        self.warmup_s, self.capture_s, self.launches, self.replays = 0.0, 0.0, {}, 0
-        self.pool_bytes = 0
-        warm_up()
-
-    def replay(self):
-        self.replays += 1
-        self.out = self.body()
 
 
 def test_lane_bookkeeping_matches_the_eager_loop(f32, monkeypatch):

@@ -1,7 +1,9 @@
 """Worker processes for the port's multi-process CPU tests
 (tests/test_torch_parallel.py, tests/test_torch_training.py,
-tests/test_torch_server_mesh.py): one gloo process per rank of a
-`torch.distributed` job on this machine.
+tests/test_torch_server_mesh.py, tests/test_torch_mesh_graph.py): one gloo
+process per rank of a `torch.distributed` job on this machine. Also the
+step graphs' CPU stand-ins (DirectGraph, DirectPass), which the
+single-process graph tests import from here.
 
     python tests/torch_parallel_worker.py SCENARIO DIR
 
@@ -41,6 +43,46 @@ def frame_noise(n_frames: int, ldim: int, temp: float, seed: int = 0):
         return out
 
     return source
+
+
+class DirectGraph:
+    """A step graph's stand-in on the CPU: the capture's warm-up runs (it
+    must change nothing the chunk reads), then each replay calls the body
+    the graph would hold (Lane.block) on the lane's buffers, into `out`.
+    Under a mesh it runs the card's collectives: the warm-up's once, then
+    the body's on each replay (a capture records them without running
+    them)."""
+
+    pool_bytes = 0  # what a capture's pool grows by
+
+    def __init__(self, lane, K, injected):
+        import torch
+
+        self.lane, self.K = lane, K
+        self.noise = torch.zeros((K, lane.B, lane.model.specs.ldim)) if injected else None
+        self.warmup_s, self.capture_s, self.launches, self.replays = 0.0, 0.0, {}, 0
+        lane.warm_up(K, self.noise)
+
+    def replay(self):
+        self.replays += 1
+        self.out = self.lane.block(self.K, self.noise)
+
+
+class DirectPass:
+    """A prompt or encoder graph's stand-in on the CPU (in place of
+    step_graphs._PassGraph): the warm-up runs, then each replay calls the
+    body the graph would hold, into `out`."""
+
+    pool_bytes = 0
+
+    def __init__(self, stream, holder, warm_up, body, generator=None):
+        self.body = body
+        self.warmup_s, self.capture_s, self.launches, self.replays = 0.0, 0.0, {}, 0
+        warm_up()
+
+    def replay(self):
+        self.replays += 1
+        self.out = self.body()
 
 
 class RowNoise:
@@ -376,8 +418,215 @@ def lose_rank(inp: dict, meta: dict) -> dict:
     os._exit(0)  # the group lost a rank: no teardown
 
 
+def _stand_ins(rank: int, pool_bytes: int = 0):
+    """Every step graph of the process replaced by its direct call
+    (DirectGraph, DirectPass), each capture's pool growing by `pool_bytes`
+    times rank + 1: what each rank measures differs, as
+    torch.cuda.memory_reserved's growth may differ between the ranks of a
+    job."""
+    from pocket_tts_tpu_torch.pipeline import step_graphs
+
+    class Graph(DirectGraph):
+        pass
+
+    class Pass(DirectPass):
+        pass
+
+    Graph.pool_bytes = Pass.pool_bytes = pool_bytes * (rank + 1)
+    step_graphs._BlockGraph, step_graphs._PassGraph = Graph, Pass
+
+
+def _graph_modes(model):
+    """Set `model`'s step graphs on (the stand-ins) or off (op by op)."""
+    def mode(graphed: bool):
+        model._graphed = lambda: graphed
+    return mode
+
+
+def _kept(model) -> np.ndarray:
+    """What the step graphs keep, as sortable rows: each block graph's
+    (B, K, C) and each prompt or encoder graph's kind and key."""
+    sg = model.step_graphs
+    rows = [f"block B={st['B']} K={st['K']} C={st['C']}" for st in sg.stats()]
+    rows += [f"{st['kind']} {st['key']}" for st in sg.pass_stats()]
+    return np.asarray(sorted(rows) or [""])
+
+
+def mesh_graph_tp(inp: dict, meta: dict) -> dict:
+    """World 2: TP 1x2 with EOS off, every graph a direct call of its body
+    (the stand-ins) against the same calls op by op, on one seed: a b1
+    stream with device noise and a seed that grows from 256 to 384 slots,
+    then a second chunk in the same lane, and one with injected noise, all
+    with copy_state False (the audio and the post-chunk state kept); the
+    voice prompt and the encoder (state_for_audio_array); what each rank
+    keeps when rank 1's budget is 0 and rank 0's unbounded (two requests
+    across 256 -> 384); then, with each capture's pool growing by a
+    different amount on each rank, what each keeps under a budget one byte
+    short of rank 0's holdings; and the block and the text prompt with
+    every host read of a tensor made to raise."""
+    import torch
+
+    from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+
+    rank = int(os.environ["RANK"])
+    torch.set_num_threads(1)  # tiny ops: a pool of threads per op costs more than its work
+    _stand_ins(rank, pool_bytes=10**9)
+    model = _load(meta["config"], eos_threshold=1e9)
+    model.shard_for_mesh(make_mesh(1, 2), tensor_parallel=True)
+    mode = _graph_modes(model)
+    D = model.specs.transformer.d_model
+    cond = torch.from_numpy(inp["cond"])  # [1, 180, D]: a long voice, 256 -> 384 slots
+    tokens = meta["tokens"]
+    out: dict = {}
+
+    def stream(voice, frames, **kw):
+        audio = np.concatenate(list(model.generate_audio_stream_from_tokens(
+            voice, tokens, 2, max_gen_len=frames, write_back=True, **kw)))
+        return audio, voice
+
+    def save(prefix, audio, state):
+        out[f"{prefix}_audio"] = audio
+        for name in ("k", "v", "pos", "offset"):
+            out[f"{prefix}_{name}"] = getattr(state, name).numpy()
+        out[f"{prefix}_write_pos"] = np.asarray(state.write_pos)
+
+    for graphed in (False, True):
+        mode(graphed)
+        tag = "graphed" if graphed else "eager"
+        voice = model.state_for_conditioning(cond)
+        for name in ("k", "v", "pos", "offset"):
+            out[f"{tag}_voice_{name}"] = getattr(voice, name).numpy().copy()
+        cloned = model.state_for_audio_array(inp["wav"])
+        out[f"{tag}_clone_k"], out[f"{tag}_clone_offset"] = cloned.k.numpy(), cloned.offset.numpy()
+        st = voice.clone()
+        save(f"{tag}_seeded", *stream(st, 66, seed=1))
+        save(f"{tag}_second", *stream(st, 10, seed=2))
+        out[f"{tag}_fresh10_audio"] = stream(voice.clone(), 10, seed=2)[0]
+        save(f"{tag}_injected", *stream(voice.clone(), 20,
+                                       noise_source=frame_noise(40, model.specs.ldim, 1.0, 3)))
+    out["kept_unbounded"] = _kept(model)
+
+    # rank budgets that differ: the group keeps by the least
+    sg = model.step_graphs
+    sg.release()
+    sg.budget = 0 if rank == 1 else None
+    for i, (frames, seed) in enumerate(((66, 1), (10, 2))):
+        out[f"budget_audio_{i}"] = stream(voice.clone(), frames, seed=seed)[0]
+        out[f"budget_kept_{i}"] = _kept(model)
+        out[f"budget_held_{i}"] = np.asarray(sg.held())
+
+    # pool growth that differs by rank: the group counts the largest
+    sg.release()
+    sg.budget = None
+    out["bytes_audio_0"] = stream(voice.clone(), 66, seed=1)[0]
+    held = torch.tensor([sg.held()])
+    torch.distributed.broadcast(held, src=0)
+    sg.budget = int(held) - 1
+    for i, (frames, seed) in enumerate(((10, 2), (66, 1)), start=1):
+        out[f"bytes_audio_{i}"] = stream(voice.clone(), frames, seed=seed)[0]
+        out[f"bytes_kept_{i}"] = _kept(model)
+        out[f"bytes_held_{i}"] = np.asarray(sg.held())
+    sg.budget = None
+    sg.release()
+
+    # no host read inside a block or a text prompt of the mesh
+    lane = sg.acquire(1)
+    lane.start(4, None)
+    lane.load(voice.clone(), 256)
+    lane.prompt([tokens], 8)
+    lane.begin()
+    host = torch.tensor(tokens[:8] + [0] * (8 - len(tokens[:8])) + [len(tokens[:8])])[None]
+    noise = torch.from_numpy(frame_noise(8, model.specs.ldim, 1.0, 5)((8, 1, model.specs.ldim)))
+    real = {name: getattr(torch.Tensor, name) for name in ("__bool__", "item", "tolist", "cpu")}
+
+    def host_read(*args, **kwargs):
+        raise AssertionError("host read inside a graph's body")
+
+    for name in real:
+        setattr(torch.Tensor, name, host_read)
+    try:
+        try:
+            bool(torch.ones(1))
+            guarded = False
+        except AssertionError:
+            guarded = True
+        shapes = [tuple(lane.block(1, None).shape), tuple(lane.block(8, noise).shape)]
+        lane._prompt_body(host, lane.slab.offset.clone(), lane.slab.wp.clone())
+    finally:
+        for name, fn in real.items():
+            setattr(torch.Tensor, name, fn)
+    lane.close()
+    out["host_read_guarded"] = np.asarray(guarded)
+    out["host_read_shapes"] = np.asarray(shapes)
+    return out
+
+
+def mesh_graph_dp(inp: dict, meta: dict) -> dict:
+    """World 2: DP 2x1 with EOS off: a ragged batch of 4 (voices and
+    prompts of different lengths) with injected per-row noise and with
+    device noise on a seed, every graph a direct call of its body against
+    the same calls op by op; each block's noise as this rank's lane
+    received it; and an unsharded model's noise for the whole batch on the
+    same seeds (this rank alone: no collective)."""
+    import torch
+
+    from pocket_tts_tpu_torch.parallel.mesh import captures_collectives, make_mesh
+    from pocket_tts_tpu_torch.pipeline import step_graphs
+
+    rank = int(os.environ["RANK"])
+    torch.set_num_threads(1)  # tiny ops: a pool of threads per op costs more than its work
+    _stand_ins(rank)
+    one = _load(meta["config"], eos_threshold=1e9)
+    model = _load(meta["config"], eos_threshold=1e9)
+    model.shard_for_mesh(make_mesh(2, 1))
+    token_lists = meta["batch_tokens"]
+    conds = [torch.from_numpy(inp[f"batch_cond_{b}"]) for b in range(4)]
+    seeds = meta["batch_seeds"]
+    warm = [False]
+    real_warm = step_graphs.Lane.warm_up
+
+    def warm_up(self, K, noise):
+        warm[0] = True
+        try:
+            real_warm(self, K, noise)
+        finally:
+            warm[0] = False
+
+    step_graphs.Lane.warm_up = warm_up
+
+    def recording(m, noises):
+        real = m._decode_block
+
+        def decode_block(lm, mimi, prev, is_bos, noise):
+            if not warm[0]:
+                noises.append(noise.clone())
+            return real(lm, mimi, prev, is_bos, noise)
+
+        m._decode_block = decode_block
+
+    out: dict = {}
+    for m, name in ((one, "unsharded"), (model, "mesh")):
+        noises: list = []
+        recording(m, noises)
+        mode = _graph_modes(m)
+        for graphed in ((False,) if m is one else (False, True)):
+            mode(graphed)
+            tag = f"{name}_{'graphed' if graphed else 'eager'}"
+            voices = [m.state_for_conditioning(c) for c in conds]
+            for kind, kw in (("injected", dict(noise_source=RowNoise(seeds))),
+                             ("device", dict(seed=5))):
+                noises.clear()
+                audio = m.generate_audio_batch(voices, token_lists, frames_after_eos=2, **kw)
+                out.update({f"{tag}_{kind}_{b}": a for b, a in enumerate(audio)})
+                out[f"{tag}_{kind}_noise"] = torch.cat(noises).numpy()
+    out["rows"] = np.asarray([model.step_graphs.stats()[0]["rows"]])
+    out["captures"] = np.asarray(captures_collectives(model.mesh))
+    return out
+
+
 SCENARIOS = {"serve4": serve4, "tp2": tp2, "train4": train4, "server_mesh": server_mesh,
-             "lose_rank": lose_rank}
+             "lose_rank": lose_rank, "mesh_graph_tp": mesh_graph_tp,
+             "mesh_graph_dp": mesh_graph_dp}
 
 
 def main() -> int:
