@@ -35,8 +35,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      and at one rank's TP=2 shard shapes, plain and int8, the flow head's as
      f32 activations over bf16 weights, and the Mimi decoder transformer's
      four, the kernel and torch.matmul timed as device time by CUDA-graph
-     replay (graph_ms), over weights cold in L2 and warm; gemv_stack at the
-     int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
+     replay (graph_ms), over weights cold in L2 and warm, and for int8 w1
+     at 1 and 32 rows torch._weight_int8pack_mm the same way (int8pack);
+     gemv_stack at the int8 GEMV probe's size (48 x [4096, 1024] int8, -128 and 127 included)
      at 1, 3, 8, 32 and 48 rows, timed at 1, 8 and 32 rows as device time
      by graph replay (the 201 MB weight is cold in L2 by size) with its
      share of the bound and its effective GB/s;
@@ -141,6 +142,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      stream cut (the mesh's NCCL communicators aborted) within
      HEALTH_TIMEOUT_S + 15 s, POST /tts 503 at once, no lane or pass kept,
      rank 0 still answering and exiting with rc 0;
+  5e'. the port's tools over 5b's checkpoint and wavs: `python -m
+     pocket_tts_tpu_torch.tools.kernel_gate` in a subprocess (rc 0, one
+     PASS line for each of its cases), the step profile at batches 1 and 32
+     (its ms/frame and audio-s/s lines), and the voice-catalog exporter on a
+     catalog of the two wavs (f32), each state bit-equal to the CLI's
+     export-voice of the same wav, with its ms per voice;
   5f. the quantization sweep (pocket_tts_tpu_torch.tools.evaluate_quantization
      --random-init --voices 1 --skip-wer) on english.yaml in f32: five rows
      printed and read back;
@@ -870,6 +877,8 @@ def check_gemv(report: dict) -> None:
                     b_ms, b_by = bound(nbytes, 2 * R * O * I, x_name)
                     lib = ("none" if lib_ms is None
                            else f"{lib_ms:.4f} (warm {lib_warm:.4f})")
+                    if quant and x_name == "bfloat16" and name == "w1" and R in (1, 32):
+                        lib += f" int8pack_ms={int8pack(x, wq, y_p)}"
                     print(f"gemv {label} {name} {O}x{I} R={R}: max_abs_err={err:.3g} "
                           f"rel={rel:.3g} rel_tol={tol} kernel_ms={ms:.4f} (warm {warm_ms:.4f}) "
                           f"library_ms={lib} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
@@ -881,6 +890,30 @@ def check_gemv(report: dict) -> None:
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
                 del Ws, wq
+
+
+def int8pack(x, wq: list, want) -> str:
+    """torch._weight_int8pack_mm(x, Wq, s), one PyTorch call of the int8
+    product x @ (Wq s).T (its scales in x's dtype, as it takes them), held
+    to the plain version at the bf16 bar and timed as the kernel is (graph
+    replay over the cold weight copies, and warm); or "none" and the
+    error's first line where the card's torch has no kernel for it."""
+    import torch
+
+    scales = [w["s"].to(x.dtype) for w in wq]
+    try:
+        got = torch._weight_int8pack_mm(x, wq[0]["q"], scales[0])
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return f"none ({(str(e).splitlines() or [repr(e)])[0]})"
+    err, rel = rel_err(got, want)
+    if rel > REL_TOL["bfloat16"]:
+        raise AssertionError(f"_weight_int8pack_mm: max |library - plain| / max |plain| "
+                             f"{rel:.3g} > {REL_TOL['bfloat16']}")
+    cold = graph_ms([lambda w=w, s=s: torch._weight_int8pack_mm(x, w["q"], s)
+                     for w, s in zip(wq, scales)])
+    warm = graph_ms([lambda: torch._weight_int8pack_mm(x, wq[0]["q"], scales[0])])
+    return f"{cold:.4f} (warm {warm:.4f}; rel {rel:.3g})"
 
 
 # The rows gemv_stack is held at, and the rows whose times are kept.
@@ -2231,6 +2264,80 @@ def run_voice_cloning(tmp: Path) -> tuple[dict, dict]:
     return {k: counts[k] + clone_counts[k] for k in counts}, reuse
 
 
+# ------------------------------------------------------------ the port's tools
+
+
+def run_tools(tmp: Path, config: Path, wav_a: Path, wav_b: Path) -> None:
+    """The port's tools on the card: `python -m
+    pocket_tts_tpu_torch.tools.kernel_gate` in a subprocess (rc 0 and one
+    PASS line for each of its cases), the step profile at batches 1 and 32
+    (its lines), and the voice-catalog exporter over the voice-cloning
+    phase's full-width english checkpoint (f32) with a catalog of its two
+    wavs: each exported state bit-equal to the CLI's export-voice of the
+    same wav (the same encoder and voice-prompt graphs), ms per voice."""
+    import torch
+
+    from pocket_tts_tpu_torch.api import cli
+    from pocket_tts_tpu_torch.pipeline.tts import TTSModel
+    from pocket_tts_tpu_torch.tools import generate_default_voices as gdv
+    from pocket_tts_tpu_torch.tools import kernel_gate, profile_step
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch.tools.kernel_gate"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"  gate: {line}")
+    passed = [ln[5:ln.rindex(" (")] for ln in proc.stdout.splitlines() if ln.startswith("PASS ")]
+    names = [c.name for c in kernel_gate.cases()]
+    if proc.returncode != 0 or sorted(passed) != sorted(names):
+        raise AssertionError(f"kernel gate: rc {proc.returncode}, {len(passed)} PASS lines for "
+                             f"{len(names)} cases; stderr: {proc.stderr[-2000:]}")
+    print(f"tools: kernel gate passed {len(passed)} cases in {time.perf_counter() - t0:.1f} s "
+          "(a subprocess)")
+
+    t1 = time.perf_counter()
+    profile_step.main(["1", "32"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tools: step profile in {time.perf_counter() - t1:.1f} s")
+
+    catalog = {"voice-a": str(wav_a), "voice-b": str(wav_b)}
+    loads: list[float] = []
+
+    def load_model(language: str):  # the exporter's loader, pointed at the local config
+        t = time.perf_counter()
+        model = TTSModel.load_model(config=config)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t)
+        return model
+
+    saved = gdv.PREDEFINED_VOICE_ORIGINS, gdv.TTSModel
+    gdv.PREDEFINED_VOICE_ORIGINS = catalog
+    gdv.TTSModel = type("Loader", (), {"load_model": staticmethod(load_model)})
+    out = tmp / "catalog"
+    try:
+        t2 = time.perf_counter()
+        rc = gdv.main(["--out", str(out), "--languages", "english"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+    finally:
+        gdv.PREDEFINED_VOICE_ORIGINS, gdv.TTSModel = saved
+    if rc != 0 or len(loads) != 1:
+        raise AssertionError(f"exporter: rc {rc}, {len(loads)} model loads")
+    for name, wav in catalog.items():
+        got = out / "english" / "embeddings" / f"{name}.safetensors"
+        want = tmp / f"cli-{name}.safetensors"
+        if cli.main(["-q", "export-voice", wav, str(want), "--config", str(config)]) != 0:
+            raise AssertionError(f"exporter: the CLI's export-voice of {name} failed")
+        if not got.exists() or got.read_bytes() != want.read_bytes():
+            raise AssertionError(f"exporter: {got} is not bit-equal to the CLI's {want}")
+    print(f"tools: exporter wrote {len(catalog)} voices bit-equal to the CLI's export-voice, "
+          f"{(wall - loads[0]) * 1e3 / len(catalog):.1f} ms per voice (host wall, f32, the "
+          f"first voice's graph captures included; model load {loads[0]:.2f} s) "
+          f"[{card_line()}]")
+
+
 # ------------------------------------------------------------ serving surfaces
 
 
@@ -3288,8 +3395,10 @@ def main() -> int:
             print(f"parallel done at {time.perf_counter() - t_start:.1f} s")
             paths["server mesh TP 1x1 bf16"] = run_server_mesh(
                 Path(d), cloned["config"], cloned["wav_a"], cloned["wav_b"])
-            del cloned
             print(f"server mesh done at {time.perf_counter() - t_start:.1f} s")
+            run_tools(Path(d), cloned["config"], cloned["wav_a"], cloned["wav_b"])
+            del cloned
+            print(f"tools done at {time.perf_counter() - t_start:.1f} s")
             paths["sweep f32 int8"] = run_sweep(Path(d))
             print(f"sweep done at {time.perf_counter() - t_start:.1f} s")
             paths["training f32"] = run_training()

@@ -222,14 +222,15 @@ def encode_to_latent(specs: MimiSpecs, params: dict, audio: torch.Tensor) -> tor
     return latent
 
 
-def decoder_step(
+def decoder_upsample_step(
     specs: MimiSpecs,
     params: dict,
     latent: torch.Tensor,
     state: dict,
 ) -> tuple[torch.Tensor, dict]:
-    """One streaming decode: projected latents [B, outer_dim, T_f] -> audio
-    [B, 1, T_f*16*hop] (1920 samples per frame) and the updated state."""
+    """`decoder_step` up to the SEANet decoder: projected latents [B,
+    outer_dim, T_f] -> the SEANet input [B, dimension, 16 T_f] (the x16
+    upsample and the windowed transformer) and their updated state."""
     x, up_state = conv_transpose1d_step(latent, specs.upsample_spec, params["upsample"],
                                         state["upsample"])
     h = x.transpose(1, 2)
@@ -239,10 +240,21 @@ def decoder_step(
                                     state["transformer"], window=True)
     if "decoder_transformer_out_proj" in params:
         out = matmul_t(out, params["decoder_transformer_out_proj"])
-    audio, dec_state = codec_decode(specs.decoder, params["decoder"],
-                                    out.transpose(1, 2).contiguous(), state["decoder"],
-                                    params.get("decoder_packed"))
-    return audio, {"upsample": up_state, "transformer": tstate, "decoder": dec_state}
+    return out.transpose(1, 2).contiguous(), {"upsample": up_state, "transformer": tstate}
+
+
+def decoder_step(
+    specs: MimiSpecs,
+    params: dict,
+    latent: torch.Tensor,
+    state: dict,
+) -> tuple[torch.Tensor, dict]:
+    """One streaming decode: projected latents [B, outer_dim, T_f] -> audio
+    [B, 1, T_f*16*hop] (1920 samples per frame) and the updated state."""
+    x, new_state = decoder_upsample_step(specs, params, latent, state)
+    audio, new_state["decoder"] = codec_decode(specs.decoder, params["decoder"], x,
+                                               state["decoder"], params.get("decoder_packed"))
+    return audio, new_state
 
 
 def project_latent(specs: MimiSpecs, params: dict, latent: torch.Tensor) -> torch.Tensor:

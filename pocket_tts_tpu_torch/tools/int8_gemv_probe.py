@@ -20,7 +20,6 @@ Usage: python -m pocket_tts_tpu_torch.tools.int8_gemv_probe [rows]
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
@@ -28,6 +27,7 @@ import numpy as np
 import torch
 
 from pocket_tts_tpu_torch.ops.gemv_stack import gemv_stack
+from pocket_tts_tpu_torch.tools import card_line
 
 L, O, I = 48, 4096, 1024  # 48 stacked [4096,1024] = one 24l model's FFN halves
 REPS = 8  # passes over the L layers per application
@@ -145,10 +145,7 @@ def main(argv: list[str] | None = None) -> None:
     rows = int(argv[0]) if argv else 1
     if not torch.cuda.is_available():
         raise SystemExit("int8_gemv_probe: no CUDA device (the probe measures the card)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
-          flush=True)
+    print(card_line(), flush=True)
     run_probe(rows, torch.device("cuda"), np.random.default_rng(0))
 
 
